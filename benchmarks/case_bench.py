@@ -1,6 +1,5 @@
 """At-scale throughput for the non-flagship cases (channel, backwards step,
-Rayleigh-Benard) on one TPU chip — the VERDICT round-2 ask: recorded bench
-numbers beyond the cavity (BASELINE.md "Measured framework performance").
+Rayleigh-Benard) on one device.
 
 Prints one JSON line per case:
   {"case": ..., "grid": ..., "steps_per_sec": ..., "cell_steps_per_sec": ...,

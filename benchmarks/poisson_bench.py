@@ -1,6 +1,5 @@
 """Poisson solver benchmark: multigrid solves/sec and sweep-equivalents/sec
-to 1e-6 relative residual (BASELINE.json: "Poisson sweeps/sec to 1e-6
-residual"), across grid sizes, plus the SOR comparison at reference scale.
+to 1e-6 relative residual, across grid sizes, plus the SOR comparison at reference scale.
 
 Usage: python benchmarks/poisson_bench.py [sizes...]
 Prints one JSON line per size.

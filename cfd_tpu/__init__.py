@@ -1,11 +1,11 @@
-"""cfd_tpu — TPU-native incompressible Navier-Stokes framework.
+"""cfd_tpu — incompressible Navier-Stokes framework in JAX.
 
-A brand-new JAX/XLA/Pallas/pjit re-design of the capabilities of the reference
+A JAX/XLA re-design of the capabilities of the reference
 C++ CFD portfolio (tjjones6/Computational-Fluid-Dynamics): staggered-MAC-grid
 explicit projection method, SOR/multigrid pressure-Poisson solvers, vectorized
 ghost-cell boundary conditions, internal solid geometry via masks, Boussinesq
 thermal convection with FTLE diagnostics, VTK/ParaView output, and 2D spatial
-domain decomposition over TPU meshes.
+domain decomposition over device meshes.
 
 Reference layer map: SURVEY.md section 1 (cavity-01.cpp, channel-01.cpp,
 backwards_step-01.cpp).

@@ -1,9 +1,9 @@
 """Vectorized ghost-cell boundary conditions.
 
-TPU-native equivalent of the reference's L2 boundary layer: each BC is a pure
-function ``(u, v) -> (u, v)`` (or ``p -> p`` for pressure ghosts) made of
-``.at[].set`` index updates, applied in the reference's exact sequence so the
-produced arrays match the C++ loops bit-for-bit (up to dtype).
+The reference's L2 boundary layer: each BC is a pure function
+``(u, v) -> (u, v)`` (or ``p -> p`` for pressure ghosts) made of index
+updates (``put``), applied in the reference's exact sequence so the produced
+arrays match the C++ loops bit-for-bit (up to dtype).
 
 Reference code: cavity-01.cpp:523-543, channel-01.cpp:513-541,
 backwards_step-01.cpp:616-740.
@@ -13,12 +13,31 @@ from __future__ import annotations
 
 from typing import Callable
 
+import jax
 import jax.numpy as jnp
 
 from cfd_tpu.grid import Grid
+from cfd_tpu.ops.stencil import _sh
 
 VelocityBC = Callable[[jnp.ndarray, jnp.ndarray], tuple[jnp.ndarray, jnp.ndarray]]
 PressureBC = Callable[[jnp.ndarray], jnp.ndarray]
+
+
+def put(a: jnp.ndarray, rows: slice, cols: slice, value) -> jnp.ndarray:
+    """``a.at[rows, cols].set(value[rows, cols])`` as a select over the
+    whole array; ``value`` is a scalar or an array of a's shape (a shifted
+    copy of ``a`` for ghost reflections). A select partitions over row and
+    column shards as it stands, where XLA's SPMD partitioner miscompiles the
+    row-slice scatter on row-sharded arrays."""
+    jj = jax.lax.broadcasted_iota(jnp.int32, a.shape, 0)
+    ii = jax.lax.broadcasted_iota(jnp.int32, a.shape, 1)
+    m = ((jj >= rows.start) & (jj < rows.stop)
+         & (ii >= cols.start) & (ii < cols.stop))
+    return jnp.where(m, jnp.asarray(value, a.dtype), a)
+
+
+def _r(j):  # one row or column
+    return slice(j, j + 1)
 
 
 def lid_cavity_bc(grid: Grid, lid_velocity: float) -> VelocityBC:
@@ -31,10 +50,10 @@ def lid_cavity_bc(grid: Grid, lid_velocity: float) -> VelocityBC:
     nx, ny = grid.nx, grid.ny
 
     def bc(u: jnp.ndarray, v: jnp.ndarray):
-        u = u.at[ny + 1, 0 : nx + 1].set(2.0 * lid_velocity - u[ny, 0 : nx + 1])
-        u = u.at[0, 0 : nx + 1].set(-u[1, 0 : nx + 1])
-        v = v.at[0 : ny + 1, nx + 1].set(-v[0 : ny + 1, nx])
-        v = v.at[0 : ny + 1, 0].set(-v[0 : ny + 1, 1])
+        u = put(u, _r(ny + 1), slice(0, nx + 1), 2.0 * lid_velocity - _sh(u, -1, 0))
+        u = put(u, _r(0), slice(0, nx + 1), -_sh(u, 1, 0))
+        v = put(v, slice(0, ny + 1), _r(nx + 1), -_sh(v, 0, -1))
+        v = put(v, slice(0, ny + 1), _r(0), -_sh(v, 0, 1))
         return u, v
 
     return bc
@@ -47,14 +66,14 @@ def channel_bc(grid: Grid, inlet_velocity: float) -> VelocityBC:
     nx, ny = grid.nx, grid.ny
 
     def bc(u: jnp.ndarray, v: jnp.ndarray):
-        u = u.at[1 : ny + 1, 0].set(inlet_velocity)
-        v = v.at[0 : ny + 1, 0].set(0.0)
-        u = u.at[1 : ny + 1, nx].set(u[1 : ny + 1, nx - 1])
-        v = v.at[0 : ny + 1, nx + 1].set(v[0 : ny + 1, nx])
-        v = v.at[0, 1 : nx + 1].set(0.0)
-        u = u.at[0, 0 : nx + 1].set(-u[1, 0 : nx + 1])
-        v = v.at[ny, 1 : nx + 1].set(0.0)
-        u = u.at[ny + 1, 0 : nx + 1].set(-u[ny, 0 : nx + 1])
+        u = put(u, slice(1, ny + 1), _r(0), inlet_velocity)
+        v = put(v, slice(0, ny + 1), _r(0), 0.0)
+        u = put(u, slice(1, ny + 1), _r(nx), _sh(u, 0, -1))
+        v = put(v, slice(0, ny + 1), _r(nx + 1), _sh(v, 0, -1))
+        v = put(v, _r(0), slice(1, nx + 1), 0.0)
+        u = put(u, _r(0), slice(0, nx + 1), -_sh(u, 1, 0))
+        v = put(v, _r(ny), slice(1, nx + 1), 0.0)
+        u = put(u, _r(ny + 1), slice(0, nx + 1), -_sh(u, -1, 0))
         return u, v
 
     return bc
@@ -72,15 +91,15 @@ def step_bc(grid: Grid, inlet_velocity: float, inlet_j_max: int) -> VelocityBC:
     v_zero = jnp.asarray(grid.v_zero_mask)
 
     def bc(u: jnp.ndarray, v: jnp.ndarray):
-        u = u.at[1 : inlet_j_max + 1, 0].set(inlet_velocity)
-        u = u.at[inlet_j_max + 1 : ny + 1, 0].set(0.0)
-        v = v.at[0 : ny + 1, 0].set(0.0)
-        u = u.at[1 : ny + 1, nx].set(u[1 : ny + 1, nx - 1])
-        v = v.at[0 : ny + 1, nx + 1].set(v[0 : ny + 1, nx])
-        v = v.at[0, 1 : nx + 1].set(0.0)
-        u = u.at[0, 0 : nx + 1].set(-u[1, 0 : nx + 1])
-        v = v.at[ny, 1 : nx + 1].set(0.0)
-        u = u.at[ny + 1, 0 : nx + 1].set(-u[ny, 0 : nx + 1])
+        u = put(u, slice(1, inlet_j_max + 1), _r(0), inlet_velocity)
+        u = put(u, slice(inlet_j_max + 1, ny + 1), _r(0), 0.0)
+        v = put(v, slice(0, ny + 1), _r(0), 0.0)
+        u = put(u, slice(1, ny + 1), _r(nx), _sh(u, 0, -1))
+        v = put(v, slice(0, ny + 1), _r(nx + 1), _sh(v, 0, -1))
+        v = put(v, _r(0), slice(1, nx + 1), 0.0)
+        u = put(u, _r(0), slice(0, nx + 1), -_sh(u, 1, 0))
+        v = put(v, _r(ny), slice(1, nx + 1), 0.0)
+        u = put(u, _r(ny + 1), slice(0, nx + 1), -_sh(u, -1, 0))
         u = jnp.where(u_zero, jnp.zeros_like(u), u)
         v = jnp.where(v_zero, jnp.zeros_like(v), v)
         return u, v
@@ -94,10 +113,10 @@ def channel_pressure_ghosts(grid: Grid) -> PressureBC:
     nx, ny = grid.nx, grid.ny
 
     def ghosts(p: jnp.ndarray) -> jnp.ndarray:
-        p = p.at[1 : ny + 1, 0].set(p[1 : ny + 1, 1])
-        p = p.at[1 : ny + 1, nx + 1].set(0.0)
-        p = p.at[0, 1 : nx + 1].set(p[1, 1 : nx + 1])
-        p = p.at[ny + 1, 1 : nx + 1].set(p[ny, 1 : nx + 1])
+        p = put(p, slice(1, ny + 1), _r(0), _sh(p, 0, 1))
+        p = put(p, slice(1, ny + 1), _r(nx + 1), 0.0)
+        p = put(p, _r(0), slice(1, nx + 1), _sh(p, 1, 0))
+        p = put(p, _r(ny + 1), slice(1, nx + 1), _sh(p, -1, 0))
         return p
 
     return ghosts

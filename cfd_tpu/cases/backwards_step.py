@@ -9,6 +9,8 @@ extrapolation), so arbitrary rasterized solids work through Grid.masked.
 
 from __future__ import annotations
 
+import dataclasses
+
 import jax.numpy as jnp
 import numpy as np
 
@@ -42,8 +44,6 @@ def make_backwards_step_case(
     poisson_check_every: int = 1,
     poisson: str = "auto",  # "auto" | "sor" | "multigrid" (defect-correction masked MG)
     dtype=jnp.float64,
-    smoother_mode: str = "auto",  # "auto" | "off" | "interpret" (Pallas fine level)
-    layout: str = "auto",  # "auto" | "quad" (f32 kernel path)
     mg_overrides: dict | None = None,  # MGConfig field overrides (tuning)
 ) -> Case:
     ensure_dtype_enabled(dtype)
@@ -98,14 +98,15 @@ def make_backwards_step_case(
         # level (ghost refresh incl. solid-cell averaging), weighted
         # approximation on the coarse hierarchy (SURVEY.md "masked multigrid"
         # hard part).
-        import dataclasses as _dc
-
-        mg = MGConfig(tol_factor=tolerance_factor, abs_tol=abs_tol)
+        # V(1,2): with honest stall exits (MGConfig.stall_ratio) the
+        # masked defect correction leaves a barely-contracting mode that
+        # post-smoothing handles best; V(2,2) and V(2,1) need more cycles.
+        mg = MGConfig(tol_factor=tolerance_factor, abs_tol=abs_tol,
+                      pre_sweeps=1, post_sweeps=2)
         if mg_overrides:
-            mg = _dc.replace(mg, **mg_overrides)
+            mg = dataclasses.replace(mg, **mg_overrides)
         solve = make_masked_multigrid_poisson(
-            grid, coeffs, mg, step_pressure_ghosts(grid), dtype=dtype,
-            smoother_mode=smoother_mode)
+            grid, coeffs, mg, step_pressure_ghosts(grid), dtype=dtype)
         poisson_cap = mg.max_cycles
     elif poisson == "sor":
         solve = make_ghost_poisson(grid, coeffs, sor, step_pressure_ghosts(grid))
@@ -113,195 +114,14 @@ def make_backwards_step_case(
     else:
         raise ValueError(f"unknown poisson solver: {poisson}")
 
-    # f32 quad fast path (VERDICT round-2 item 2b): tentative-state carry +
-    # fused masked projection + quad exact fine level (kernels.step_quad)
-    # over the aligned masked coarse hierarchy — the step-case twin of the
-    # channel factory's quad branch.
-    step_kernels = None
-    align_state = unalign_state = None
-    use_quad = False
-    adaptive_carry_builder = None
-    whole_step_kernel = None
-    import numpy as _np
-    import jax as _jax
-
-    dev = _jax.config.jax_default_device
-    platform = dev.platform if dev is not None else _jax.default_backend()
-    interp = smoother_mode == "interpret"
-    # layout="auto" only picks quad on a real TPU (so the CPU test suite's
-    # smoother_mode knobs keep their natural-layout meaning); explicit
-    # layout="quad" + smoother_mode="interpret" opts in on CPU.
-    quad_wanted = (layout == "quad"
-                   or (layout == "auto" and smoother_mode == "auto"
-                       and platform == "tpu"))
-    if (_np.dtype(dtype) == _np.float32 and poisson == "multigrid"
-            and quad_wanted and (interp or platform == "tpu")):
-        from cfd_tpu.kernels.quad import from_quad, quad_dims, to_quad
-        from cfd_tpu.poisson.multigrid import (
-            _round_up8_128,
-            make_masked_quad_multigrid_poisson,
-            step_rect_params,
-        )
-
-        rect = step_rect_params(grid)
-        coarse_shape = _round_up8_128((ny // 2 + 2, nx // 2 + 2))
-        _, _, Hq8, Wqa = quad_dims(grid.shape)
-        use_quad = rect is not None and coarse_shape == (Hq8, Wqa)
-        if layout == "quad" and not use_quad:
-            raise ValueError(
-                f"quad layout unavailable: rect={rect}, coarse shape "
-                f"{coarse_shape} vs quad plane shape {(Hq8, Wqa)}")
-        if use_quad:
-            from cfd_tpu.kernels.step_quad import (
-                make_quad_step_corr_predictor_source,
-                make_quad_step_corrector,
-                uncorrect_step_quad,
-            )
-            from cfd_tpu.state import State
-
-            # V(1,2) unless overridden: with HONEST stall exits
-            # (MGConfig.stall_ratio note) the masked defect correction
-            # leaves a barely-contracting mode that post-smoothing handles
-            # best — measured at 2048x256 on the chip: V(1,2) 628 steps/s
-            # at 5.0 cycles/step vs V(2,2) 549/7.5 and V(2,1) 133/7.0
-            # (round 3's "2845 at 2.0 cycles/step" V(2,1) pick was the
-            # 0.7-stall quitting at res ~1e2 every step)
-            if not (mg_overrides and ("post_sweeps" in mg_overrides
-                                      or "pre_sweeps" in mg_overrides)):
-                mg = _dc.replace(mg, pre_sweeps=1, post_sweeps=2)
-            step_i_, inlet_j_ = rect
-            corr = make_quad_step_corrector(
-                grid.shape, coeffs, step_i_, inlet_j_, inlet_velocity,
-                interpret=interp)
-            step_kernels = (
-                make_quad_step_corr_predictor_source(
-                    grid.shape, coeffs, step_i_, inlet_j_, inlet_velocity,
-                    interpret=interp),
-                corr,
-            )
-            if mg.whole_step:
-                # ONE Pallas call per TIME STEP (kernels.whole_step):
-                # masked carry + fluid-mean removal + the exact masked
-                # defect-correction solve in a single kernel.
-                from cfd_tpu.kernels.whole_step import (
-                    make_quad_whole_step_step,
-                )
-
-                whole_step_kernel = make_quad_whole_step_step(
-                    grid, coeffs, mg, step_i_, inlet_j_, inlet_velocity,
-                    interpret=interp)
-            # ONE Pallas call per pressure solve: the exact masked fine
-            # level + the full-2D-weight coarse hierarchy + the tolerance
-            # loop all in-kernel (kernels.whole_solve) — the measured
-            # round-3 DEFAULT where the hierarchy fits in VMEM (2715 vs
-            # 2248 steps/s at 2048x256, BASELINE.md); falls back to the
-            # per-kernel composition when the build rejects or a fusion
-            # knob takes manual control (auto_whole_solve docstring).
-            from cfd_tpu.kernels.whole_solve import (
-                auto_whole_solve,
-                make_quad_step_whole_solve,
-            )
-
-            solve, mg = auto_whole_solve(
-                mg, mg_overrides, interp,
-                build=lambda: make_quad_step_whole_solve(grid, coeffs, mg,
-                                                         interpret=interp),
-                fallback=lambda: make_masked_quad_multigrid_poisson(
-                    grid, coeffs, mg, dtype=dtype, interpret=interp))
-
-            def align_state(state):
-                us, vs = uncorrect_step_quad(state.u, state.v, state.p,
-                                             grid.shape, coeffs,
-                                             step_i_, inlet_j_)
-                t = lambda a: to_quad(a, grid.shape)
-                return State(t(us), t(vs), t(state.p), state.T, None)
-
-            def unalign_state(state):
-                u2, v2 = corr(state.u, state.v, state.p)
-                f = lambda a: from_quad(a, grid.shape)
-                return State(f(u2), f(v2), f(state.p), state.T, None)
-
-            # Lagged-controller adaptive on the SAME tentative-carry fused
-            # masked kernel: (dt_corr, dt_pred) traced SMEM pair +
-            # max|u2|/max|v2| Courant partials fused into its reductions
-            # (the cavity/channel adaptive_impl_carry with the step
-            # rectangle's masks; solve warm-starts from plain p as the
-            # fixed-dt path does).
-            def adaptive_impl_carry():
-                from cfd_tpu.state import StepDiagnostics
-
-                fused_a = make_quad_step_corr_predictor_source(
-                    grid.shape, coeffs, step_i_, inlet_j_, inlet_velocity,
-                    interpret=interp, traced_dt=True, emit_courant=True)
-                corr_a = make_quad_step_corrector(
-                    grid.shape, coeffs, step_i_, inlet_j_, inlet_velocity,
-                    interpret=interp, traced_dt=True)
-                idx_, idy_ = 1.0 / grid.dx, 1.0 / grid.dy
-                n_fl = grid.n_fluid
-                ny_, nx_ = grid.ny, grid.nx
-
-                def remove_mean(b, sum_b):
-                    q = _jax.lax.broadcasted_iota(jnp.int32, b.shape, 0)
-                    jj = 2 * _jax.lax.broadcasted_iota(
-                        jnp.int32, b.shape, 1) + (q >> 1)
-                    ii = 2 * _jax.lax.broadcasted_iota(
-                        jnp.int32, b.shape, 2) + (q & 1)
-                    cm = ((jj >= 1) & (jj <= ny_) & (ii >= 1) & (ii <= nx_)
-                          & ~((ii <= step_i_) & (jj > inlet_j_)))
-                    return jnp.where(cm, b - sum_b / n_fl, b)
-
-                def step(state, dt_corr, dt_pred):
-                    us2, vs2, b, sum_b, mu, mv = fused_a(
-                        (dt_corr, dt_pred), state.u, state.v, state.p)
-                    b = remove_mean(b, sum_b)
-                    p, iters, res = solve(state.p, b)
-                    co_per_dt = mu * idx_ + mv * idy_
-                    return (State(us2, vs2, p, state.T, None),
-                            StepDiagnostics(iters, res), co_per_dt)
-
-                def to_aligned(st, dt):
-                    us, vs = uncorrect_step_quad(st.u, st.v, st.p,
-                                                 grid.shape, coeffs,
-                                                 step_i_, inlet_j_, dt=dt)
-                    t = lambda a: to_quad(a, grid.shape)
-                    return State(t(us), t(vs), t(st.p), st.T, None)
-
-                def to_logical(st, dt_used):
-                    u2, v2 = corr_a(dt_used, st.u, st.v, st.p)
-                    f = lambda a: from_quad(a, grid.shape)
-                    return State(f(u2), f(v2), f(st.p), st.T, None)
-
-                return step, to_aligned, to_logical
-
-            adaptive_carry_builder = adaptive_impl_carry
-    if layout != "auto" and step_kernels is None:
-        raise ValueError(
-            f"layout={layout!r} requires the f32 multigrid kernel path "
-            "(dtype=float32, poisson='multigrid', TPU platform or "
-            "smoother_mode='interpret')")
-    if (poisson == "multigrid" and (mg.whole_solve or mg.whole_step)
-            and not use_quad):
-        # the masked whole-solve/whole-step live on the quad fast path
-        # only; fail loudly rather than silently running the per-kernel
-        # path
-        raise ValueError("whole_solve/whole_step require the quad fast "
-                         "path for the masked step flavor (f32 + multigrid "
-                         "+ quad layout)")
     return Case(
         name="backwards_step",
         poisson_max_iters=poisson_cap,
-        step_kernels=step_kernels,
-        whole_step_kernel=whole_step_kernel,
-        carry_tentative=use_quad,
-        align_state=align_state,
-        unalign_state=unalign_state,
-        adaptive_impl_carry=adaptive_carry_builder,
         # Plain previous-p warm start (the channel ordering's default,
-        # channel-01.cpp:636): the 2p - p_prev EXTRAPOLATION was tried per
-        # the round-2 verdict (item 2a) and MEASURED to hurt this case on
-        # TPU at 2048x256 — 4.0 -> 5.75 V-cycles/step (natural path) and
-        # 6.85 (quad path) — the extrapolation doubles the f32 stall-floor
-        # noise that the masked defect-correction V-cycle then re-contracts.
+        # channel-01.cpp:636): the 2p - p_prev extrapolation was measured
+        # to raise this case's cycles/step at 2048x256 (4.0 -> 5.75) — it
+        # doubles the f32 stall-floor noise that the masked
+        # defect-correction V-cycle then re-contracts.
         extrapolate_warm_start=False,
         grid=grid,
         coeffs=coeffs,
@@ -322,8 +142,6 @@ def make_backwards_step_case(
                   length=length, height=height_total,
                   step_height=height_total - height_inlet,
                   step_location=step_location, reynolds=reynolds_number,
-                  cfl=cfl, omega=omega,
-                  # for parallel.quad_sharded's backwards_step flavor
-                  # (banner_lines ignores unknown keys)
-                  inlet_velocity=inlet_velocity),
+                  cfl=cfl, omega=omega, inlet_velocity=inlet_velocity,
+                  mg=(mg if poisson == "multigrid" else None)),
     )

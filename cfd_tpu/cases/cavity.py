@@ -8,6 +8,8 @@ derived quantities use the same float64 host arithmetic expression shapes
 
 from __future__ import annotations
 
+import dataclasses
+
 import jax.numpy as jnp
 
 from cfd_tpu.bc import lid_cavity_bc
@@ -36,20 +38,8 @@ def make_cavity_case(
     poisson_check_every: int = 1,
     poisson: str = "auto",  # "auto" | "sor" | "multigrid"
     dtype=jnp.float64,
-    step_kernel_mode: str = "auto",  # "auto" | "off" | "interpret"
-    layout: str = "auto",  # "auto" | "quad" | "aligned" (f32 kernel path)
     mg_overrides: dict | None = None,  # MGConfig field overrides (tuning)
     forcing: tuple | None = None,  # (fx, fy) body-force arrays on u/v faces
-    fuse_pre: bool = False,  # fold cycle 1's pre-smooth into the carry
-    # kernel on the per-kernel quad path. Default OFF: measured SLOWER at
-    # the 2048^2 headline — 1016.0 vs 1222.7 steps/s quiet-machine A/B at
-    # identical 1.0 cycles/step (tools/fused_pre_bench.py, round 5). The
-    # "saved" pre-kernel level-0 round trip was largely riding XLA's
-    # scoped-VMEM staging of the scan carries already, and the enlarged
-    # fused kernel's VMEM footprint displaces exactly that placement (the
-    # same budget trade as the 13/40/110 MB vmem_limit sweep,
-    # BASELINE.md round-2). Kept as an opt-in for re-probing when the
-    # toolchain's VMEM placement moves.
 ) -> Case:
     ensure_dtype_enabled(dtype)
     # systematic constructor checks (cavity-01.cpp:417-425 made runtime)
@@ -84,27 +74,15 @@ def make_cavity_case(
         # odd-sized and stays on SOR.
         poisson = "multigrid" if mg_compatible(n_interior, n_interior) and n_interior >= 128 else "sor"
     if poisson == "multigrid":
-        import dataclasses as _dc
-
-        mg = MGConfig(tol_factor=tolerance_factor, abs_tol=0.0)
-        # coarse_dtype='float32'/'f32' is the explicit full-precision
-        # opt-out of the auto bf16 coarse hierarchy below — normalize it to
-        # None (and strip the key so it does not count as a manual fusion
-        # override for the auto_whole_solve policy).
-        from cfd_tpu.poisson.multigrid import normalize_coarse_dtype_optout
-
-        explicit_f32_coarse, mg_overrides = \
-            normalize_coarse_dtype_optout(mg_overrides)
+        # V(2,1): at 2048^2 it reaches the tolerance in the same
+        # cycles/step as MGConfig's V(2,2) with one smoothing pair fewer
+        # per cycle (PERF.md).
+        mg = MGConfig(tol_factor=tolerance_factor, abs_tol=0.0, post_sweeps=1)
         if mg_overrides:
-            mg = _dc.replace(mg, **mg_overrides)
-        # provisional XLA solver (coarse_dtype is a kernel-path knob: the
-        # aligned/quad builds below rebuild with it; staying on this path
-        # with the knob set raises after the path decision)
+            mg = dataclasses.replace(mg, **mg_overrides)
         solve = make_multigrid_poisson(
-            cavity_problem(n_interior, n_interior, grid.dx, grid.dy),
-            _dc.replace(mg, coarse_dtype=None),
-            dtype=dtype,
-        )
+            cavity_problem(n_interior, n_interior, grid.dx, grid.dy), mg,
+            dtype=dtype)
         poisson_cap = mg.max_cycles
     elif poisson == "sor":
         solve = make_eps_neumann_poisson(grid, coeffs, sor)
@@ -112,336 +90,9 @@ def make_cavity_case(
     else:
         raise ValueError(f"unknown poisson solver: {poisson}")
 
-    # Fused Pallas stage kernels (BC+predictor+source, BC+projection) for
-    # f32 rectangle multigrid runs on TPU — same auto rule as the multigrid
-    # smoother; matched to the XLA path in tests/test_kernels.py. The whole
-    # state is carried in the Mosaic-aligned layout between kernels (no
-    # per-step pad/slice copies); the MG solve consumes it aligned too.
-    step_kernels = None
-    align_state = unalign_state = None
-    adaptive_builder = None
-    adaptive_carry_builder = None
-    whole_step_kernel = None
-    use_quad = False
-    carry_fused_pre = False
-    import numpy as _np
-    import jax as _jax
-
-    dev = _jax.config.jax_default_device
-    platform = dev.platform if dev is not None else _jax.default_backend()
-    interp = step_kernel_mode == "interpret"
-    if (_np.dtype(dtype) == _np.float32 and poisson == "multigrid"
-            and forcing is None  # body forces run the XLA step paths
-            and (interp or (step_kernel_mode == "auto" and platform == "tpu"))):
-        from cfd_tpu.kernels.projection import make_corrector, make_predictor_source
-        from cfd_tpu.poisson.multigrid import _round_up8_128
-
-        # f32 perf path: V(2,1) measured 795 vs 745 steps/s for V(2,2) at
-        # 2048^2 with identical 1.0 cycles/step — the post-smooth kernel
-        # halves while the tolerance check (same criterion) still passes.
-        # f64 validation keeps the conservative V(2,2) default.
-        if not (mg_overrides and "post_sweeps" in mg_overrides):
-            mg = _dc.replace(mg, post_sweeps=1)
-        problem = cavity_problem(n_interior, n_interior, grid.dx, grid.dy)
-
-        def _map(state, f):
-            from cfd_tpu.state import State
-            return State(*(None if a is None else f(a) for a in state))
-
-        # Quad (2x2 block-parity) layout: dense red-black planes + fused
-        # restriction/prolongation (kernels.quad) — the fastest path.
-        # Requires the aligned level-1 shape to coincide with the quad
-        # plane shape (true unless n/2+1 lands exactly on an 8/128
-        # alignment boundary, e.g. n = 14 mod 16).
-        from cfd_tpu.kernels.quad import from_quad, quad_dims, to_quad
-        coarse_shape = _round_up8_128((n_interior // 2 + 2, n_interior // 2 + 2))
-        _, _, Hq8, Wqa = quad_dims(grid.shape)
-        use_quad = (layout in ("auto", "quad")
-                    and coarse_shape == (Hq8, Wqa))
-        if layout == "quad" and not use_quad:
-            raise ValueError(
-                f"quad layout unavailable: coarse shape {coarse_shape} != "
-                f"quad plane shape {(Hq8, Wqa)}")
-        if use_quad:
-            from cfd_tpu.kernels.quad import (
-                make_quad_corr_predictor_source,
-                make_quad_corrector,
-                make_quad_post_prolong_smooth,
-                make_quad_pre_smooth_restrict,
-                make_quad_predictor_source,
-                uncorrect_quad,
-            )
-            from cfd_tpu.state import State
-
-            corr = make_quad_corrector(grid.shape, coeffs, lid_velocity,
-                                       interpret=interp)
-            step_kernels = (
-                make_quad_corr_predictor_source(grid.shape, coeffs,
-                                                lid_velocity, interpret=interp),
-                corr,
-            )
-            quad_l0 = (
-                make_quad_pre_smooth_restrict(
-                    grid.shape, problem, mg.omega, mg.pre_sweeps,
-                    coarse_shape, interpret=interp),
-                make_quad_post_prolong_smooth(
-                    grid.shape, problem, mg.omega, mg.post_sweeps,
-                    coarse_shape, interpret=interp),
-            )
-            if mg.whole_step:
-                # ONE Pallas call per TIME STEP (kernels.whole_step):
-                # carry + the whole tolerance-driven solve in a single
-                # kernel; step_kernels stay for stats/export/adaptive.
-                from cfd_tpu.kernels.whole_step import (
-                    make_quad_whole_step_cavity,
-                )
-
-                whole_step_kernel = make_quad_whole_step_cavity(
-                    grid.shape, problem, coeffs, mg, lid_velocity,
-                    interpret=interp)
-            # ONE Pallas call per pressure solve (kernels.whole_solve) —
-            # the measured round-3 DEFAULT wherever the hierarchy fits in
-            # VMEM; falls back to the per-kernel composition at sizes the
-            # build rejects (e.g. 2048^2). Explicit fusion-knob overrides
-            # take manual control (auto_whole_solve docstring).
-            from cfd_tpu.kernels.whole_solve import (
-                auto_whole_solve,
-                make_quad_whole_solve,
-            )
-
-            # Auto bf16 coarse hierarchy on the REAL-TPU per-kernel path
-            # (i.e. wherever whole_solve rejects — the 2048^2+ headline
-            # sizes): measured 1218.6 vs 1156.8 steps/s at 2048^2 (+5.3%,
-            # identical 1.0 cycles/step) and a wash at 4096^2 (271.3 vs
-            # 274.2, within noise) — tools/coarse_dtype_bench.py. Fully-auto
-            # case only: any fusion/precision knob in mg_overrides (or the
-            # explicit 'float32' opt-out above) keeps full precision.
-            from cfd_tpu.poisson.multigrid import auto_bf16_coarse
-
-            auto_bf16 = auto_bf16_coarse(interp, explicit_f32_coarse, mg,
-                                         mg_overrides)
-            mg_fb = (_dc.replace(mg, coarse_dtype="bfloat16") if auto_bf16
-                     else mg)
-            solve, mg = auto_whole_solve(
-                mg, mg_overrides, interp,
-                build=lambda: make_quad_whole_solve(grid.shape, problem, mg,
-                                                    interpret=interp),
-                # where the f32 fused hierarchy VMEM-rejects (2048^2), try
-                # the bf16-hierarchy whole-solve before giving up fusion —
-                # the round-5 composition of the two proven levers
-                # (auto_whole_solve docstring; on-chip probe in
-                # tools/ws2048_probe.py)
-                build_reduced=(lambda: make_quad_whole_solve(
-                    grid.shape, problem,
-                    _dc.replace(mg, coarse_dtype="bfloat16"),
-                    interpret=interp)) if auto_bf16 else None,
-                fallback=lambda: make_multigrid_poisson(
-                    problem, mg_fb, dtype=dtype, aligned_io=True,
-                    use_pallas=True, pallas_interpret=interp,
-                    quad_level0=quad_l0,
-                ))
-            if not mg.whole_solve:
-                mg = mg_fb  # reflect the fallback's actual config
-
-            carry_fused_pre = False
-            solve_plain = solve  # the adaptive builders keep the 3-arg solve
-            if fuse_pre and not mg.whole_solve and not mg.whole_step:
-                # Round-5 headline fusion: on the per-kernel fallback path
-                # (whole_solve VMEM/toolchain-rejected — the 2048^2+
-                # headline sizes) the carry kernel also runs the first
-                # V-cycle's pre-smooth+residual+restriction, removing the
-                # pre kernel's 52 MB level-0 HBM round trip at the
-                # steady-state 1.0 cycles/step (kernels.quad
-                # make_quad_corr_predictor_source_fused_pre; solve starts
-                # at the coarse stage, multigrid quad_first_rc).
-                from cfd_tpu.kernels.quad import (
-                    make_quad_corr_predictor_source_fused_pre,
-                )
-
-                step_kernels = (
-                    make_quad_corr_predictor_source_fused_pre(
-                        grid.shape, problem, coeffs, mg.omega,
-                        mg.pre_sweeps, coarse_shape, lid_velocity,
-                        interpret=interp),
-                    corr,
-                )
-                solve = make_multigrid_poisson(
-                    problem, mg, dtype=dtype, aligned_io=True,
-                    use_pallas=True, pallas_interpret=interp,
-                    quad_level0=quad_l0, quad_first_rc=True)
-                carry_fused_pre = True
-
-            # Tentative-state boundary converters: the carried u/v are the
-            # TENTATIVE (u*, v*) fields; the logical state applies the
-            # corrector (unalign) / its exact inverse (align, resume path —
-            # round trip is one f32 rounding, not bitwise).
-            def align_state(state):
-                us, vs = uncorrect_quad(state.u, state.v, state.p,
-                                        grid.shape, coeffs, cavity_form=True)
-                t = lambda a: to_quad(a, grid.shape)
-                p_prev = state.p if state.p_prev is None else state.p_prev
-                return State(t(us), t(vs), t(state.p), state.T, t(p_prev))
-
-            def unalign_state(state):
-                u2, v2, _ = corr(state.u, state.v, state.p, state.p)
-                f = lambda a: from_quad(a, grid.shape)
-                return State(f(u2), f(v2), f(state.p), state.T,
-                             None if state.p_prev is None else f(state.p_prev))
-
-            # Adaptive-dt fast path: NON-carry quad kernels with dt traced
-            # as an SMEM scalar (no dt_prev entanglement in the state — the
-            # carried u/v are the CORRECTED fields; measured ~5% below the
-            # tentative carry at fixed dt, vs forfeiting the whole kernel
-            # path as the round-2 adaptive did).
-            def adaptive_impl():
-                from cfd_tpu.state import StepDiagnostics
-
-                pred_a = make_quad_predictor_source(
-                    grid.shape, coeffs, lid_velocity, interpret=interp,
-                    traced_dt=True)
-                corr_a = make_quad_corrector(
-                    grid.shape, coeffs, lid_velocity, interpret=interp,
-                    traced_dt=True)
-                idx_, idy_ = 1.0 / grid.dx, 1.0 / grid.dy
-
-                def step(state, dt):
-                    us, vs, b, max_b = pred_a(dt, state.u, state.v)
-                    p, iters, res = solve_plain(state.p_prev, b, max_b)
-                    u2, v2, guess = corr_a(dt, us, vs, p, state.p)
-                    co_per_dt = (jnp.max(jnp.abs(u2)) * idx_
-                                 + jnp.max(jnp.abs(v2)) * idy_)
-                    return (State(u2, v2, p, state.T, guess),
-                            StepDiagnostics(iters, res), co_per_dt)
-
-                def to_aligned(st):
-                    # non-carry quad convention: p_prev slot holds the
-                    # extrapolated GUESS
-                    t = lambda a: to_quad(a, grid.shape)
-                    p_prev = st.p if st.p_prev is None else st.p_prev
-                    return State(t(st.u), t(st.v), t(st.p), st.T,
-                                 t(2.0 * st.p - p_prev))
-
-                def to_logical(st):
-                    f = lambda a: from_quad(a, grid.shape)
-                    p_prev = None if st.p_prev is None \
-                        else f(2.0 * st.p - st.p_prev)  # guess -> prev p
-                    return State(f(st.u), f(st.v), f(st.p), st.T, p_prev)
-
-                return step, to_aligned, to_logical
-
-            # Lagged-controller adaptive on the SAME tentative-carry fused
-            # kernel as the fixed-dt fast path: (dt_corr, dt_pred) traced
-            # SMEM scalars (the corrector undoes the gradient with the dt
-            # that built the carried tentative fields; the predictor
-            # advances with this step's dt), max|u|/max|v| of the
-            # corrected fields fused into the kernel's scalar reductions —
-            # the Courant feedback is one step stale by construction (see
-            # kernels.quad.make_quad_corr_predictor_source).
-            def adaptive_impl_carry():
-                from cfd_tpu.state import StepDiagnostics
-
-                fused_a = make_quad_corr_predictor_source(
-                    grid.shape, coeffs, lid_velocity, interpret=interp,
-                    traced_dt=True, emit_courant=True)
-                corr_a = make_quad_corrector(
-                    grid.shape, coeffs, lid_velocity, interpret=interp,
-                    traced_dt=True)
-                idx_, idy_ = 1.0 / grid.dx, 1.0 / grid.dy
-
-                def step(state, dt_corr, dt_pred):
-                    us2, vs2, b, guess, max_b, mu, mv = fused_a(
-                        (dt_corr, dt_pred), state.u, state.v, state.p,
-                        state.p_prev)
-                    p, iters, res = solve_plain(guess, b, max_b)
-                    co_per_dt = mu * idx_ + mv * idy_
-                    return (State(us2, vs2, p, state.T, state.p),
-                            StepDiagnostics(iters, res), co_per_dt)
-
-                def to_aligned(st, dt):
-                    # carry convention: p_prev slot = previous pressure
-                    us, vs = uncorrect_quad(st.u, st.v, st.p, grid.shape,
-                                            coeffs, cavity_form=True, dt=dt)
-                    t = lambda a: to_quad(a, grid.shape)
-                    p_prev = st.p if st.p_prev is None else st.p_prev
-                    return State(t(us), t(vs), t(st.p), st.T, t(p_prev))
-
-                def to_logical(st, dt_used):
-                    u2, v2, _ = corr_a(dt_used, st.u, st.v, st.p, st.p)
-                    f = lambda a: from_quad(a, grid.shape)
-                    return State(f(u2), f(v2), f(st.p), st.T,
-                                 None if st.p_prev is None
-                                 else f(st.p_prev))
-
-                return step, to_aligned, to_logical
-
-            adaptive_builder = adaptive_impl
-            adaptive_carry_builder = adaptive_impl_carry
-        else:
-            step_kernels = (
-                make_predictor_source(grid.shape, coeffs, lid_velocity,
-                                      aligned_io=True, interpret=interp,
-                                      emit_max_b=True),
-                make_corrector(grid.shape, coeffs, lid_velocity, aligned_io=True,
-                               interpret=interp, emit_guess=True),
-            )
-            solve = make_multigrid_poisson(
-                problem, mg, dtype=dtype, aligned_io=True, use_pallas=True,
-                pallas_interpret=interp,
-            )
-            H, Wp = grid.shape
-            H8, W = _round_up8_128(grid.shape)
-
-            # The aligned carry's p_prev slot holds the corrector-emitted
-            # extrapolated guess (2p - p_prev); the LOGICAL state always
-            # stores the previous pressure (same convention as the quad and
-            # XLA paths), converted here via the involution x -> 2p - x so
-            # cross-layout checkpoint resume is well-defined (one f32
-            # rounding, not bitwise — same contract as the quad carry).
-            def _swap_guess(state):
-                if state.p_prev is None:
-                    return state
-                from cfd_tpu.state import State
-                return State(state.u, state.v, state.p, state.T,
-                             2.0 * state.p - state.p_prev)
-
-            def align_state(state):
-                return _swap_guess(_map(
-                    state, lambda a: jnp.pad(a, ((0, H8 - H), (0, W - Wp)))))
-
-            def unalign_state(state):
-                return _swap_guess(_map(state, lambda a: a[:H, :Wp]))
-    if layout != "auto" and step_kernels is None:
-        # the guard inside the branch covers quad-shape mismatch; this one
-        # covers the branch never being taken (f64, non-TPU without
-        # interpret, or a non-multigrid Poisson flavor)
-        raise ValueError(
-            f"layout={layout!r} requires the f32 multigrid kernel path "
-            "(dtype=float32, poisson='multigrid', TPU platform or "
-            "step_kernel_mode='interpret')")
-    if (poisson == "multigrid" and (mg.whole_solve or mg.whole_step)
-            and not use_quad):
-        # whole_solve/whole_step must not be silently ignored off the
-        # quad path
-        raise ValueError("whole_solve/whole_step require the f32 quad "
-                         "multigrid kernel path")
-    if (poisson == "multigrid" and mg.coarse_dtype is not None
-            and step_kernels is None):
-        # the provisional XLA solver above was built WITHOUT the knob —
-        # it must not be silently ignored off the kernel path
-        raise ValueError("coarse_dtype requires the f32 multigrid kernel "
-                         "path (dtype=float32, TPU platform or "
-                         "step_kernel_mode='interpret')")
     return Case(
         poisson_max_iters=poisson_cap,
-        step_kernels=step_kernels,
-        whole_step_kernel=whole_step_kernel,
         forcing=forcing,
-        carry_tentative=use_quad,
-        carry_fused_pre=carry_fused_pre,
-        align_state=align_state,
-        unalign_state=unalign_state,
-        adaptive_impl=adaptive_builder,
-        adaptive_impl_carry=adaptive_carry_builder,
         name="cavity",
         extrapolate_warm_start=(poisson == "multigrid"),
         grid=grid,
@@ -463,8 +114,5 @@ def make_cavity_case(
                   length=cavity_length, height=cavity_height,
                   square_spacing=True, reynolds=reynolds_number,
                   cfl=cfl_number, omega=omega, lid_velocity=lid_velocity,
-                  # the RESOLVED multigrid config (auto_whole_solve /
-                  # auto_bf16_coarse decisions applied) so tools and tests
-                  # can assert which solver path production actually took
                   mg=(mg if poisson == "multigrid" else None)),
     )

@@ -6,6 +6,8 @@ channel-01.cpp:286-303 with derived quantities per channel-01.cpp:336-344.
 
 from __future__ import annotations
 
+import dataclasses
+
 import jax.numpy as jnp
 
 from cfd_tpu.bc import channel_bc, channel_pressure_ghosts
@@ -36,8 +38,6 @@ def make_channel_case(
     poisson_check_every: int = 1,
     poisson: str = "auto",  # "auto" | "sor" | "multigrid"
     dtype=jnp.float64,
-    step_kernel_mode: str = "auto",  # "auto" | "off" | "interpret"
-    layout: str = "auto",  # "auto" | "quad" | "aligned" (f32 kernel path)
     mg_overrides: dict | None = None,  # MGConfig field overrides (tuning)
 ) -> Case:
     ensure_dtype_enabled(dtype)
@@ -68,19 +68,17 @@ def make_channel_case(
     if poisson == "auto":
         poisson = "multigrid" if mg_compatible(nx, ny) and max(nx, ny) >= 128 else "sor"
     if poisson == "multigrid":
-        import dataclasses as _dc
-
-        mg = MGConfig(tol_factor=tolerance_factor, abs_tol=abs_tol)
+        # V(1,2): post-smoothing is what kills the slowest error mode of
+        # this problem. Measured first-cycle contraction on the step-1
+        # source at 1536x512: V(1,2) 0.035, V(2,2) 0.084, V(2,1) 0.84 — so
+        # V(1,2) converges like V(2,2) at V(2,1)'s three pairs per cycle,
+        # while V(2,1) cannot contract that mode and the run diverges.
+        mg = MGConfig(tol_factor=tolerance_factor, abs_tol=abs_tol,
+                      pre_sweeps=1, post_sweeps=2)
         if mg_overrides:
-            mg = _dc.replace(mg, **mg_overrides)
-        # provisional XLA solver (coarse_dtype is a kernel-path knob: the
-        # aligned/quad builds below rebuild with it; staying on this path
-        # with the knob set raises after the path decision)
+            mg = dataclasses.replace(mg, **mg_overrides)
         solve = make_multigrid_poisson(
-            channel_problem(nx, ny, grid.dx, grid.dy),
-            _dc.replace(mg, coarse_dtype=None),
-            dtype=dtype,
-        )
+            channel_problem(nx, ny, grid.dx, grid.dy), mg, dtype=dtype)
         poisson_cap = mg.max_cycles
     elif poisson == "sor":
         solve = make_ghost_poisson(grid, coeffs, sor, channel_pressure_ghosts(grid))
@@ -88,242 +86,9 @@ def make_channel_case(
     else:
         raise ValueError(f"unknown poisson solver: {poisson}")
 
-    # Fused Pallas stage kernels for f32 rectangle multigrid runs (TPU, or
-    # interpret mode for CPU tests), mirroring the cavity flavor: state
-    # carried Mosaic-aligned, channel BCs applied in-kernel, source sum
-    # emitted for the mean removal (kernels.projection channel family).
-    step_kernels = None
-    align_state = unalign_state = None
-    use_quad = False
-    adaptive_carry_builder = None
-    whole_step_kernel = None
-    import numpy as _np
-    import jax as _jax
-
-    dev = _jax.config.jax_default_device
-    platform = dev.platform if dev is not None else _jax.default_backend()
-    interp = step_kernel_mode == "interpret"
-    if (_np.dtype(dtype) == _np.float32 and poisson == "multigrid"
-            and (interp or (step_kernel_mode == "auto" and platform == "tpu"))):
-        import dataclasses as _dc
-
-        from cfd_tpu.poisson.multigrid import _round_up8_128
-
-        # f32 perf path: V(1,2). The round-3 V(2,1) choice was measured
-        # with the false-stall bug active (its "1.10 cycles/step" was the
-        # solver quitting at res ~7.5e4x tolerance; see the
-        # MGConfig.stall_ratio note) and V(2,1) genuinely cannot contract
-        # an error mode of this problem at 1536x512 (>=0.9/cycle — the
-        # run diverges by step ~200 even with the honest stall exit).
-        # Post-smoothing is what kills that mode: measured first-cycle
-        # contraction on the step-1 source at 1536x512 is V(1,2) 0.035 /
-        # V(2,2) 0.084 / V(2,1) 0.84, so V(1,2) gets V(2,2)-class
-        # convergence at V(2,1)'s 3-pairs-per-cycle cost — and its level-1
-        # block (2*(1+2)+1 = 7 rows) fits the sharded 8-row device halo,
-        # where V(2,2)'s 9 rows would not. f64 validation keeps the
-        # conservative V(2,2) default.
-        if not (mg_overrides and ("post_sweeps" in mg_overrides
-                                  or "pre_sweeps" in mg_overrides)):
-            mg = _dc.replace(mg, pre_sweeps=1, post_sweeps=2)
-        problem = channel_problem(nx, ny, grid.dx, grid.dy)
-
-        def _map(state, f):
-            from cfd_tpu.state import State
-            return State(*(None if a is None else f(a) for a in state))
-
-        # Quad (2x2 block-parity) layout — same availability rule as the
-        # cavity factory (kernels.quad docstring).
-        from cfd_tpu.kernels.quad import from_quad, quad_dims, to_quad
-        coarse_shape = _round_up8_128((ny // 2 + 2, nx // 2 + 2))
-        _, _, Hq8, Wqa = quad_dims(grid.shape)
-        use_quad = (layout in ("auto", "quad")
-                    and coarse_shape == (Hq8, Wqa))
-        if layout == "quad" and not use_quad:
-            raise ValueError(
-                f"quad layout unavailable: coarse shape {coarse_shape} != "
-                f"quad plane shape {(Hq8, Wqa)}")
-        if use_quad:
-            from cfd_tpu.kernels.quad import (
-                make_quad_channel_corr_predictor_source,
-                make_quad_channel_corrector,
-                make_quad_post_prolong_smooth,
-                make_quad_pre_smooth_restrict,
-                uncorrect_quad,
-            )
-            from cfd_tpu.state import State
-
-            corr = make_quad_channel_corrector(
-                grid.shape, coeffs, inlet_velocity, interpret=interp)
-            step_kernels = (
-                make_quad_channel_corr_predictor_source(
-                    grid.shape, coeffs, inlet_velocity, interpret=interp),
-                corr,
-            )
-            quad_l0 = (
-                make_quad_pre_smooth_restrict(
-                    grid.shape, problem, mg.omega, mg.pre_sweeps,
-                    coarse_shape, interpret=interp),
-                make_quad_post_prolong_smooth(
-                    grid.shape, problem, mg.omega, mg.post_sweeps,
-                    coarse_shape, interpret=interp),
-            )
-            if mg.whole_step:
-                # ONE Pallas call per TIME STEP (kernels.whole_step)
-                from cfd_tpu.kernels.whole_step import (
-                    make_quad_whole_step_channel,
-                )
-
-                whole_step_kernel = make_quad_whole_step_channel(
-                    grid.shape, problem, coeffs, mg, nx * ny,
-                    inlet_velocity, interpret=interp)
-            # ONE Pallas call per pressure solve (kernels.whole_solve) —
-            # the measured round-3 DEFAULT where the hierarchy fits in VMEM
-            # (3390 vs 3142 steps/s at 1536x512, BASELINE.md); falls back to
-            # the per-kernel composition when the build rejects or a fusion
-            # knob takes manual control (auto_whole_solve docstring).
-            from cfd_tpu.kernels.whole_solve import (
-                auto_whole_solve,
-                make_quad_whole_solve,
-            )
-
-            solve, mg = auto_whole_solve(
-                mg, mg_overrides, interp,
-                build=lambda: make_quad_whole_solve(grid.shape, problem, mg,
-                                                    interpret=interp),
-                fallback=lambda: make_multigrid_poisson(
-                    problem, mg, dtype=dtype, aligned_io=True, use_pallas=True,
-                    pallas_interpret=interp, quad_level0=quad_l0,
-                ))
-
-            # Tentative-state boundary converters (see the cavity factory)
-            def align_state(state):
-                us, vs = uncorrect_quad(state.u, state.v, state.p,
-                                        grid.shape, coeffs, cavity_form=False)
-                t = lambda a: to_quad(a, grid.shape)
-                p_prev = state.p if state.p_prev is None else state.p_prev
-                return State(t(us), t(vs), t(state.p), state.T, t(p_prev))
-
-            def unalign_state(state):
-                u2, v2, _ = corr(state.u, state.v, state.p, state.p)
-                f = lambda a: from_quad(a, grid.shape)
-                return State(f(u2), f(v2), f(state.p), state.T,
-                             None if state.p_prev is None else f(state.p_prev))
-
-            # Lagged-controller adaptive on the SAME tentative-carry fused
-            # kernel (the cavity factory's adaptive_impl_carry with the
-            # channel ordering: rho-divided corrector, source mean removal
-            # before the solve, no fused tolerance base).
-            def adaptive_impl_carry():
-                from cfd_tpu.state import StepDiagnostics
-
-                fused_a = make_quad_channel_corr_predictor_source(
-                    grid.shape, coeffs, inlet_velocity, interpret=interp,
-                    traced_dt=True, emit_courant=True)
-                corr_a = make_quad_channel_corrector(
-                    grid.shape, coeffs, inlet_velocity, interpret=interp,
-                    traced_dt=True)
-                idx_, idy_ = 1.0 / grid.dx, 1.0 / grid.dy
-                n_cells = nx * ny
-
-                def remove_mean(b, sum_b):
-                    q = _jax.lax.broadcasted_iota(jnp.int32, b.shape, 0)
-                    jj = 2 * _jax.lax.broadcasted_iota(
-                        jnp.int32, b.shape, 1) + (q >> 1)
-                    ii = 2 * _jax.lax.broadcasted_iota(
-                        jnp.int32, b.shape, 2) + (q & 1)
-                    cm = (jj >= 1) & (jj <= ny) & (ii >= 1) & (ii <= nx)
-                    return jnp.where(cm, b - sum_b / n_cells, b)
-
-                def step(state, dt_corr, dt_pred):
-                    us2, vs2, b, guess, sum_b, mu, mv = fused_a(
-                        (dt_corr, dt_pred), state.u, state.v, state.p,
-                        state.p_prev)
-                    b = remove_mean(b, sum_b)
-                    p, iters, res = solve(guess, b)
-                    co_per_dt = mu * idx_ + mv * idy_
-                    return (State(us2, vs2, p, state.T, state.p),
-                            StepDiagnostics(iters, res), co_per_dt)
-
-                def to_aligned(st, dt):
-                    us, vs = uncorrect_quad(st.u, st.v, st.p, grid.shape,
-                                            coeffs, cavity_form=False, dt=dt)
-                    t = lambda a: to_quad(a, grid.shape)
-                    p_prev = st.p if st.p_prev is None else st.p_prev
-                    return State(t(us), t(vs), t(st.p), st.T, t(p_prev))
-
-                def to_logical(st, dt_used):
-                    u2, v2, _ = corr_a(dt_used, st.u, st.v, st.p, st.p)
-                    f = lambda a: from_quad(a, grid.shape)
-                    return State(f(u2), f(v2), f(st.p), st.T,
-                                 None if st.p_prev is None
-                                 else f(st.p_prev))
-
-                return step, to_aligned, to_logical
-
-            adaptive_carry_builder = adaptive_impl_carry
-        else:
-            from cfd_tpu.kernels.projection import (
-                make_channel_corrector, make_channel_predictor_source)
-
-            step_kernels = (
-                make_channel_predictor_source(grid.shape, coeffs, inlet_velocity,
-                                              aligned_io=True, interpret=interp),
-                make_channel_corrector(grid.shape, coeffs, inlet_velocity,
-                                       aligned_io=True, interpret=interp,
-                                       emit_guess=True),
-            )
-            solve = make_multigrid_poisson(
-                problem, mg, dtype=dtype, aligned_io=True, use_pallas=True,
-                pallas_interpret=interp,
-            )
-            H, Wp = grid.shape
-            H8, W = _round_up8_128(grid.shape)
-
-            # p_prev-slot normalization: see the cavity factory (the aligned
-            # carry holds the guess 2p - p_prev, the logical state the
-            # previous pressure; x -> 2p - x converts both ways).
-            def _swap_guess(state):
-                if state.p_prev is None:
-                    return state
-                from cfd_tpu.state import State
-                return State(state.u, state.v, state.p, state.T,
-                             2.0 * state.p - state.p_prev)
-
-            def align_state(state):
-                return _swap_guess(_map(
-                    state, lambda a: jnp.pad(a, ((0, H8 - H), (0, W - Wp)))))
-
-            def unalign_state(state):
-                return _swap_guess(_map(state, lambda a: a[:H, :Wp]))
-    if layout != "auto" and step_kernels is None:
-        # see the cavity factory: explicit layout requests must not be
-        # silently ignored when the f32 kernel branch is inactive
-        raise ValueError(
-            f"layout={layout!r} requires the f32 multigrid kernel path "
-            "(dtype=float32, poisson='multigrid', TPU platform or "
-            "step_kernel_mode='interpret')")
-    if (poisson == "multigrid" and (mg.whole_solve or mg.whole_step)
-            and not use_quad):
-        # whole_solve/whole_step must not be silently ignored off the
-        # quad path
-        raise ValueError("whole_solve/whole_step require the f32 quad "
-                         "multigrid kernel path")
-    if (poisson == "multigrid" and mg.coarse_dtype is not None
-            and step_kernels is None):
-        # the provisional XLA solver above was built WITHOUT the knob —
-        # it must not be silently ignored off the kernel path
-        raise ValueError("coarse_dtype requires the f32 multigrid kernel "
-                         "path (dtype=float32, TPU platform or "
-                         "step_kernel_mode='interpret')")
     return Case(
         name="channel",
-        whole_step_kernel=whole_step_kernel,
         poisson_max_iters=poisson_cap,
-        step_kernels=step_kernels,
-        carry_tentative=use_quad,
-        align_state=align_state,
-        unalign_state=unalign_state,
-        adaptive_impl_carry=adaptive_carry_builder,
         extrapolate_warm_start=(poisson == "multigrid"),
         grid=grid,
         coeffs=coeffs,
@@ -342,5 +107,6 @@ def make_channel_case(
         vtk_title="Channel Flow Data",
         info=dict(banner_title="Channel Flow Simulation",
                   length=length, height=height, reynolds=reynolds_number,
-                  cfl=cfl, omega=omega, inlet_velocity=inlet_velocity),
+                  cfl=cfl, omega=omega, inlet_velocity=inlet_velocity,
+                  mg=(mg if poisson == "multigrid" else None)),
     )

@@ -18,6 +18,7 @@ from __future__ import annotations
 
 import argparse
 import sys
+import time
 
 import jax
 
@@ -25,7 +26,7 @@ import jax
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="cfd_tpu",
-        description="TPU-native incompressible Navier-Stokes solvers",
+        description="Incompressible Navier-Stokes solvers in JAX",
     )
     sub = p.add_subparsers(dest="case", required=True)
 
@@ -54,18 +55,16 @@ def build_parser() -> argparse.ArgumentParser:
         sp.add_argument("--adaptive-controller", choices=["exact", "lagged"],
                         default="exact",
                         help="Courant feedback: 'exact' measures the step "
-                             "just produced; 'lagged' runs the tentative-"
-                             "carry fused kernel (fixed-dt speed, one-step-"
-                             "stale feedback = OpenFOAM adjustTimeStep "
-                             "semantics; f32 quad multigrid cases only)")
+                             "just produced; 'lagged' uses the step before "
+                             "(one-step-stale feedback = OpenFOAM "
+                             "adjustTimeStep semantics), on device")
         sp.add_argument("--steps-per-call", type=int, default=1,
                         help="advance N steps per device dispatch (lax.scan); "
                              "must divide print/save intervals")
         sp.add_argument("--mesh", type=int, default=None, metavar="N",
-                        help="run MULTI-CHIP: shard the domain over N devices "
-                             "(1-D plane-row decomposition on the quad fast "
-                             "path; needs --precision f32 and multigrid — the "
-                             "TPU-native decomposePar+mpirun, reference "
+                        help="shard the domain over N devices in bands of "
+                             "rows (XLA-partitioned step; the equivalent of "
+                             "decomposePar+mpirun, reference "
                              "README.md:129-131)")
         sp.add_argument("--sync-io", action="store_true",
                         help="write VTK snapshots synchronously in the time "
@@ -83,9 +82,7 @@ def build_parser() -> argparse.ArgumentParser:
                              "global reduction; reference checks every sweep)")
         sp.add_argument("--mg", default=None, metavar="K=V[,K=V...]",
                         help="multigrid tuning overrides (MGConfig fields), "
-                             "e.g. --mg pre_sweeps=2,tail_from=1 or "
-                             "--mg whole_solve=true (whole-solve-in-VMEM; "
-                             "f32 quad path)")
+                             "e.g. --mg pre_sweeps=2,post_sweeps=1")
         sp.add_argument("--profile-dir", default=None,
                         help="capture a jax.profiler trace of the run")
         sp.add_argument("--checkpoint-dir", default=None,
@@ -153,7 +150,8 @@ def make_case_from_args(args):
                 try:
                     ov[k] = float(v) if any(c in v for c in ".e") else int(v)
                 except ValueError:
-                    ov[k] = v  # string-valued field (e.g. coarse_dtype)
+                    raise SystemExit(f"--mg: {k}={v!r} is not a number "
+                                     "or a boolean")
         kw["mg_overrides"] = ov
 
     if args.case == "cavity":
@@ -184,6 +182,9 @@ def make_case_from_args(args):
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
+    from cfd_tpu.runtime import device_info, enable_compile_cache
+
+    enable_compile_cache()
     case = make_case_from_args(args)
 
     from cfd_tpu.io.metrics import MetricsLog
@@ -216,20 +217,20 @@ def main(argv=None) -> int:
     from cfd_tpu.io import console
 
     console.print_banner(case, color=args.color)
-    print(f"devices: {jax.devices()}")
+    device = device_info()
+    where = (f"{device['kind']} x{device['count']}"
+             + (f" ({device['card']})" if device["card"] else ""))
+    print(f"device: {device['platform']} {where}")
 
     mesh = None
     if args.mesh:
-        if args.adaptive_dt is not None and args.adaptive_controller != "lagged":
-            raise SystemExit("--mesh adaptive runs the lagged controller: "
-                             "add --adaptive-controller lagged")
-        if args.precision != "f32":
-            raise SystemExit("--mesh runs the f32 quad fast path: add "
-                             "--precision f32")
+        if args.adaptive_dt is not None:
+            raise SystemExit("--adaptive-dt is not supported with --mesh yet: "
+                             "run adaptive cases on one device")
         from cfd_tpu.parallel.mesh import make_mesh
 
-        mesh = make_mesh(n_devices=args.mesh, shape=(args.mesh, 1))
-        print(f"mesh: {args.mesh}x1 plane-row decomposition over "
+        mesh = make_mesh(n_devices=args.mesh)
+        print(f"mesh: {args.mesh}x1 row-band decomposition over "
               f"{mesh.devices.flat[0].platform}")
 
     sim = Simulation(case, exporter=exporter, metrics=metrics, mesh=mesh)
@@ -247,6 +248,7 @@ def main(argv=None) -> int:
             if start_step:
                 print(f"resumed from checkpoint at step {start_step}")
 
+    t0 = time.perf_counter()
     if args.adaptive_dt is not None:
         # run_adaptive resumes (state, step, dt, t) from sim.checkpointer
         # itself: dt/t live in the checkpoint extras
@@ -263,6 +265,12 @@ def main(argv=None) -> int:
     else:
         sim.run(state=state, n_steps=args.steps, start_step=start_step,
                 steps_per_call=args.steps_per_call)
+    if sim.history:
+        last = sim.history[-1]
+        steps = last["step"] - start_step
+        wall = time.perf_counter() - t0
+        print(f"{steps} steps in {wall:.2f} s, compilation included: "
+              f"{steps / wall:.2f} steps/s on {where}")
     if collector is not None and len(collector.times) >= 2:
         from pathlib import Path
 

@@ -1,6 +1,6 @@
 """Staggered MAC grid, geometry masks, and face-validity derivation.
 
-TPU-native equivalent of the reference's L0 field/memory layer
+Vectorized equivalent of the reference's L0 field/memory layer
 (``create_field`` + implicit staggered shapes, cavity-01.cpp:45-67,
 channel-01.cpp:46-68) and L2 geometry layer (``is_fluid`` raster + masked
 stencils, backwards_step-01.cpp:492-532, 745-976).

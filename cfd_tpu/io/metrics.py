@@ -3,7 +3,7 @@
 The reference logs ANSI-colored stdout rows only (cavity-01.cpp:769-773;
 channel adds the PPE residual column, channel-01.cpp:762-768) — write-only
 observability. This logger keeps the same column set, adds wall-time and
-cell-updates/sec (the BASELINE.json north-star metric), and persists rows to
+cell-updates/sec (bench.py's headline unit), and persists rows to
 JSONL and/or CSV for regression tracking (SURVEY.md section 5.5).
 """
 

@@ -1,6 +1,6 @@
 """Legacy-VTK STRUCTURED_POINTS time-series writer + ParaView .pvd collection.
 
-TPU-native equivalent of the reference's L4 I/O layer (VTKWriter,
+Vectorized equivalent of the reference's L4 I/O layer (VTKWriter,
 cavity-01.cpp:95-300, channel-01.cpp:100-265, masked variant
 backwards_step-01.cpp:102-297). Byte-format parity with the reference output
 (fixed 6-decimal formatting, field names and ordering, `base_XXXXXX.vtk`

@@ -1,6 +1,6 @@
 // Native text formatter for the legacy-VTK ASCII writer.
 //
-// TPU-native equivalent of the reference's C++ I/O layer (VTKWriter,
+// Native equivalent of the reference's C++ I/O layer (VTKWriter,
 // cavity-01.cpp:95-300): the device computes, the host formats. At the
 // 2048^2 benchmark scale a snapshot is ~30M formatted values; Python-side
 // numpy string formatting is 10-50x slower than this tight snprintf loop,

@@ -1,6 +1,6 @@
 """Jitted flow diagnostics returning scalar dicts.
 
-TPU-native equivalent of logStatistics (cavity-01.cpp:741-774,
+Vectorized equivalent of logStatistics (cavity-01.cpp:741-774,
 channel-01.cpp:733-769, masked variant backwards_step-01.cpp:1018-1061):
 max |div(u)| on staggered faces and total/average kinetic energy at cell
 centers, restricted to fluid cells. Under GSPMD sharding these reductions

@@ -1,6 +1,6 @@
 """MAC-grid stencil operators as whole-array shifted expressions.
 
-TPU-native equivalent of the reference's per-cell C++ loops (L1 numerics
+Vectorized equivalent of the reference's per-cell C++ loops (L1 numerics
 layer): predictor (advection + diffusion + Forward-Euler,
 cavity-01.cpp:548-603 / channel-01.cpp:546-603 / masked variant
 backwards_step-01.cpp:745-820), divergence source build
@@ -11,8 +11,8 @@ and writer-side vorticity (cavity-01.cpp:184-224).
 
 Each operator evaluates the stencil over the full padded array via
 ``jnp.roll`` shifts and selects the written region with precomputed masks —
-one fused VPU pass under XLA, and automatically halo-exchanged under GSPMD
-sharding. Fused Pallas variants live in cfd_tpu.kernels.
+one fused pass under XLA, and automatically halo-exchanged under GSPMD
+sharding.
 """
 
 from __future__ import annotations

@@ -98,7 +98,7 @@ def make_rb_ensemble(
     poisson = make_multigrid_poisson(
         neumann_problem(nx, ny, grid.dx, grid.dy),
         MGConfig(tol_factor=tolerance_factor, abs_tol=abs_tol, pin_mean=True),
-        dtype=dtype, n_interior=nx * ny, use_pallas=False,
+        dtype=dtype, n_interior=nx * ny,
     )
     vel_bc = box_noslip_bc(grid)
     temp_bc = temperature_bc(grid, params.t_bottom, params.t_top)

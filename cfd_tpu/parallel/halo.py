@@ -2,7 +2,7 @@
 
 The CFD analog of sequence-parallel ring communication (SURVEY.md section
 2.3): every stencil sweep needs the 1-cell-wide ghost strips of the four
-mesh neighbors, exchanged with ``lax.ppermute`` neighbor shifts over ICI.
+mesh neighbors, exchanged with ``lax.ppermute`` neighbor shifts.
 Physical domain boundaries have no neighbor; their ghost entries are left
 untouched (the BC functors own them) by masking the ppermute result with the
 device's mesh coordinates.

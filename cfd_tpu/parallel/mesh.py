@@ -1,9 +1,11 @@
 """Device-mesh construction for 2D spatial domain decomposition.
 
 The reference's only distribution story is OpenFOAM documentation (scotch
-decomposition + mpirun, README.md:114, 129-131). The TPU-native equivalent
-is a ``jax.sharding.Mesh`` whose axes ("dy", "dx") tile the grid in y and x;
-collectives ride ICI (SURVEY.md section 2.3).
+decomposition + mpirun, README.md:114, 129-131). The equivalent here is a
+``jax.sharding.Mesh`` whose axes ("dy", "dx") tile the grid in y and x
+(SURVEY.md section 2.3). GPUs of one host reach each other all to all over
+NVLink, so the mesh follows the grid, not a network topology: by default
+(N, 1), one band of rows per device.
 """
 
 from __future__ import annotations
@@ -24,19 +26,17 @@ def factor_2d(n: int) -> tuple[int, int]:
 
 def make_mesh(n_devices: int | None = None, shape: tuple[int, int] | None = None,
               devices=None) -> Mesh:
-    """2D mesh with axes ("dy", "dx"). Defaults to all devices, near-square."""
+    """2D mesh with axes ("dy", "dx") over the default devices (or
+    ``devices``); ``shape`` defaults to (N, 1) row bands. Raises when there
+    are fewer devices than asked for."""
     if devices is None:
         devices = jax.devices()
-        if n_devices is not None and len(devices) < n_devices:
-            # single real TPU chip: fall back to the virtual host-CPU devices
-            # (xla_force_host_platform_device_count) for mesh dry-runs
-            devices = jax.devices("cpu")
     if n_devices is not None:
         if len(devices) < n_devices:
             raise ValueError(f"need {n_devices} devices, have {len(devices)}")
         devices = devices[:n_devices]
     if shape is None:
-        shape = factor_2d(len(devices))
+        shape = (len(devices), 1)
     arr = np.asarray(devices).reshape(shape)
     return Mesh(arr, axis_names=("dy", "dx"))
 

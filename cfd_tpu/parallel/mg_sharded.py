@@ -334,7 +334,7 @@ def make_local_mg_solve(problem: M.PoissonProblem, cfg: M.MGConfig,
             new_res = gmax(jnp.max(jnp.abs(dist_residual(0, p, b, geom0))))
             return p, new_res.astype(dtype_), res, it + 1
 
-        # finite sentinel, not finfo.max (TPU f64 emulation stores it as inf)
+        # finite sentinel (see the single-device solve)
         big = jnp.asarray(1e30, dtype_)
         init = (p0, big / 2, big, jnp.asarray(0, jnp.int32))
         p, res, _, iters = lax.while_loop(cond, body, init)

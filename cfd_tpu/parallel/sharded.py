@@ -14,8 +14,7 @@ exchange ships full columns including just-filled y-ghost entries, which
 populates the diagonal ghost corners the MAC predictor reads (v[j-1,i+1],
 u[j+1,i-1]) without any explicit corner messages.
 
-Scope: the cavity flavor (the flagship 2048^2 benchmark config,
-BASELINE.json). Alongside this explicit path, `gspmd_step` wraps ANY case's
+Scope: the cavity flavor. Alongside this explicit path, `gspmd_step` wraps ANY case's
 single-device step with sharding annotations and lets XLA's SPMD partitioner
 insert the halo collectives automatically — the general path for the other
 cases and the multigrid solver.
@@ -23,6 +22,7 @@ cases and the multigrid solver.
 
 from __future__ import annotations
 
+import dataclasses
 from functools import partial
 
 import jax
@@ -211,9 +211,11 @@ class ShardedCavity:
             from cfd_tpu.parallel.mg_sharded import make_local_mg_solve
             from cfd_tpu.poisson.multigrid import MGConfig, cavity_problem
 
+            # the case's own V-cycle (sweeps, cycle cap) at this tolerance
+            mg_cfg = dataclasses.replace(case.info.get("mg") or MGConfig(),
+                                         tol_factor=tol_factor, abs_tol=0.0)
             mg_solve = make_local_mg_solve(
-                cavity_problem(nx, ny, grid.dx, grid.dy),
-                MGConfig(tol_factor=tol_factor, abs_tol=0.0),
+                cavity_problem(nx, ny, grid.dx, grid.dy), mg_cfg,
                 (mdy, mdx), dtype)
 
             def body_mg(u, v, p, p_prev, u_valid, v_valid):
@@ -273,23 +275,45 @@ class ShardedCavity:
         }
 
 
+def state_sharding(mesh) -> NamedSharding:
+    """Sharding of padded (ny+2, nx+2) state fields over a ("dy", "dx")
+    mesh. The padded sizes need not divide the mesh: XLA pads the last
+    shard."""
+    return NamedSharding(mesh, P("dy", "dx"))
+
+
+def _constrain(state, sharding):
+    return jax.tree.map(
+        lambda x: jax.lax.with_sharding_constraint(x, sharding), state)
+
+
+def shard_state(state, mesh):
+    """The state laid out as shard_step's output is. A jitted constraint,
+    not device_put: where the padded rows do not divide the mesh, JAX holds
+    no uneven shards and XLA returns the nearest even layout (fewer shards,
+    replicated); the step's own constraint reshards inside the program."""
+    return jax.jit(partial(_constrain, sharding=state_sharding(mesh)))(state)
+
+
+def shard_step(step, mesh):
+    """Wrap a single-device step(state) -> (state, diag) so that XLA's SPMD
+    partitioner (GSPMD) runs it over ``mesh``: the state is constrained to
+    row/column shards on entry and exit, and XLA inserts the halo
+    exchanges and reductions. Not jitted, so it can sit inside a scan."""
+    constrain = partial(_constrain, sharding=state_sharding(mesh))
+
+    def sharded(state):
+        new, diag = step(constrain(state))
+        return constrain(new), diag
+
+    return sharded
+
+
 def gspmd_step(case, mesh):
     """General path: jit ANY case's single-device step with sharding
     annotations on the padded arrays and let XLA's SPMD partitioner insert
     halo exchanges/reductions. Works for every case (including multigrid
     Poisson, whose restriction/prolongation XLA also partitions)."""
     from cfd_tpu.solver import make_step
-    from cfd_tpu.state import State
 
-    step = make_step(case)
-    sharding = NamedSharding(mesh, P("dy", "dx"))
-
-    def constrain(state: State) -> State:
-        return jax.tree.map(
-            lambda x: jax.lax.with_sharding_constraint(x, sharding), state)
-
-    def sharded(state: State):
-        new, diag = step(constrain(state))
-        return constrain(new), diag
-
-    return jax.jit(sharded)
+    return jax.jit(shard_step(make_step(case), mesh))

@@ -5,10 +5,10 @@ repo (README.md:79-94; artifact filename implies 192x64, Ra=1e6, heated
 bottom / cooled top, SURVEY.md component #35). Built here from the physics
 spec on the same staggered projection core.
 
-Nondimensionalization (FREE-FALL units — the TPU-first choice: with the
-buoyancy velocity as the unit, every field is O(1) and the whole solve is
-float32-clean, where thermal-diffusion units put the pressure at O(Ra*Pr)
-and push the Poisson residual past f32 resolution): lengths by the layer
+Nondimensionalization (FREE-FALL units: with the buoyancy velocity as the
+unit, every field is O(1) and the whole solve is float32-clean, where
+thermal-diffusion units put the pressure at O(Ra*Pr) and push the Poisson
+residual past f32 resolution): lengths by the layer
 height H, velocity by U_ff = sqrt(g alpha dT H), time by H/U_ff. Then
 
     du/dt + div(u u) = -grad p + sqrt(Pr/Ra) lap(u)
@@ -31,6 +31,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
+from cfd_tpu.bc import _r, put
 from cfd_tpu.grid import Grid
 from cfd_tpu.ops.stencil import StencilCoeffs, _sh, poisson_source, pressure_correction
 from cfd_tpu.poisson.multigrid import MGConfig, make_multigrid_poisson, mg_compatible, neumann_problem
@@ -45,14 +46,14 @@ def box_noslip_bc(grid: Grid):
     nx, ny = grid.nx, grid.ny
 
     def bc(u, v):
-        u = u.at[0, 0 : nx + 1].set(-u[1, 0 : nx + 1])
-        u = u.at[ny + 1, 0 : nx + 1].set(-u[ny, 0 : nx + 1])
-        u = u.at[1 : ny + 1, 0].set(0.0)
-        u = u.at[1 : ny + 1, nx].set(0.0)
-        v = v.at[0 : ny + 1, 0].set(-v[0 : ny + 1, 1])
-        v = v.at[0 : ny + 1, nx + 1].set(-v[0 : ny + 1, nx])
-        v = v.at[0, 1 : nx + 1].set(0.0)
-        v = v.at[ny, 1 : nx + 1].set(0.0)
+        u = put(u, _r(0), slice(0, nx + 1), -_sh(u, 1, 0))
+        u = put(u, _r(ny + 1), slice(0, nx + 1), -_sh(u, -1, 0))
+        u = put(u, slice(1, ny + 1), _r(0), 0.0)
+        u = put(u, slice(1, ny + 1), _r(nx), 0.0)
+        v = put(v, slice(0, ny + 1), _r(0), -_sh(v, 0, 1))
+        v = put(v, slice(0, ny + 1), _r(nx + 1), -_sh(v, 0, -1))
+        v = put(v, _r(0), slice(1, nx + 1), 0.0)
+        v = put(v, _r(ny), slice(1, nx + 1), 0.0)
         return u, v
 
     return bc
@@ -63,10 +64,10 @@ def temperature_bc(grid: Grid, t_bottom: float = 1.0, t_top: float = 0.0):
     nx, ny = grid.nx, grid.ny
 
     def bc(T):
-        T = T.at[0, 1 : nx + 1].set(2.0 * t_bottom - T[1, 1 : nx + 1])
-        T = T.at[ny + 1, 1 : nx + 1].set(2.0 * t_top - T[ny, 1 : nx + 1])
-        T = T.at[1 : ny + 1, 0].set(T[1 : ny + 1, 1])
-        T = T.at[1 : ny + 1, nx + 1].set(T[1 : ny + 1, nx])
+        T = put(T, _r(0), slice(1, nx + 1), 2.0 * t_bottom - _sh(T, 1, 0))
+        T = put(T, _r(ny + 1), slice(1, nx + 1), 2.0 * t_top - _sh(T, -1, 0))
+        T = put(T, slice(1, ny + 1), _r(0), _sh(T, 0, 1))
+        T = put(T, slice(1, ny + 1), _r(nx + 1), _sh(T, 0, -1))
         return T
 
     return bc
@@ -151,8 +152,6 @@ def make_rayleigh_benard_case(
     perturbation: float = 1e-2,
     seed: int = 0,
     dtype=jnp.float32,
-    step_kernel_mode: str = "auto",  # "auto" | "off" | "interpret"
-    layout: str = "auto",  # "auto" | "quad" (f32 kernel path)
     mg_overrides: dict | None = None,
     extrapolate_warm_start: bool = False,
 ) -> Case:
@@ -160,14 +159,9 @@ def make_rayleigh_benard_case(
     (.MISSING_LARGE_BLOBS:1); final_time in thermal-diffusion units.
 
     ``extrapolate_warm_start``: warm-start each pressure solve from the
-    extrapolated guess 2 p_n - p_{n-1} instead of plain p_n (the cavity/
-    channel fast-path default, cases/cavity.py). Fixed-dt paths only (the
-    lagged adaptive carry keeps plain p); the sharded RB flavor keeps
-    plain p regardless. DECIDED at production size (the measurement the
-    round-3 commit deferred): 1536x512 Ra=1e6 on the chip, steady-state
-    protocol — extrapolated 3259.5 vs plain 3232.9 steps/s at an
-    identical 2.06 cycles/step (tools/rb_warmstart_bench.py, round 4).
-    A wash: the default stays False (simpler carry, no p_prev state)."""
+    extrapolated guess 2 p_n - p_{n-1} instead of plain p_n (the cavity
+    default). At 1536x512 Ra=1e6 both reach the tolerance in the same
+    cycles/step, so the default stays False (no p_prev state)."""
     ensure_dtype_enabled(dtype)
     from cfd_tpu.params import validate_case_params
 
@@ -190,16 +184,15 @@ def make_rayleigh_benard_case(
     if not mg_compatible(nx, ny):
         raise ValueError("rayleigh_benard requires multigrid-compatible nx, ny "
                          "(even, >= 8)")
-    mg = MGConfig(tol_factor=tolerance_factor, abs_tol=abs_tol, pin_mean=True)
+    # V(2,1), as the cavity flavor (same separable smoother, pure-Neumann
+    # weights; mean pinned every cycle)
+    mg = MGConfig(tol_factor=tolerance_factor, abs_tol=abs_tol, pin_mean=True,
+                  post_sweeps=1)
     if mg_overrides:
         mg = dataclasses.replace(mg, **mg_overrides)
     problem = neumann_problem(nx, ny, grid.dx, grid.dy)
-    # provisional XLA solver (coarse_dtype is a kernel-path knob: the quad
-    # build below rebuilds with it; staying on this path with the knob set
-    # raises after the path decision)
-    poisson = make_multigrid_poisson(
-        problem, dataclasses.replace(mg, coarse_dtype=None), dtype=dtype,
-        n_interior=nx * ny)
+    poisson = make_multigrid_poisson(problem, mg, dtype=dtype,
+                                     n_interior=nx * ny)
     vel_bc = box_noslip_bc(grid)
     temp_bc = temperature_bc(grid, params.t_bottom, params.t_top)
     cell = jnp.asarray(grid.cell_mask)
@@ -207,238 +200,35 @@ def make_rayleigh_benard_case(
     v_valid = jnp.asarray(grid.v_valid_mask)
     buoy = 1.0  # free-fall units
 
-    # f32 quad fast path (VERDICT round-2 item 3): the whole per-step
-    # dataflow outside the Poisson solve fused into one tentative-carry
-    # kernel (kernels.rb_quad) + the standard quad V-cycle level 0 with
-    # pure-Neumann mean pinning.
-    use_quad = False
-    align_state = unalign_state = None
-    adaptive_carry_builder = None
-    import jax as _jax
+    def custom_step(case: Case):
+        from cfd_tpu.ops.stencil import predictor
 
-    dev = _jax.config.jax_default_device
-    platform = dev.platform if dev is not None else _jax.default_backend()
-    interp = step_kernel_mode == "interpret"
-    if (np.dtype(dtype) == np.float32
-            and layout in ("auto", "quad")
-            and (interp or (step_kernel_mode == "auto" and platform == "tpu"))):
-        from cfd_tpu.kernels.quad import (
-            from_quad,
-            make_quad_post_prolong_smooth,
-            make_quad_pre_smooth_restrict,
-            quad_dims,
-            to_quad,
-        )
-        from cfd_tpu.poisson.multigrid import _round_up8_128
+        def step(state: State, dt=None):
+            c = coeffs if dt is None else dataclasses.replace(coeffs, dt=dt)
+            u, v, T = state.u, state.v, state.T
+            us, vs = predictor(u, v, c, u_valid, v_valid)
+            # buoyancy on v-faces: T averaged to the face between
+            # rows (j) and (j+1)
+            T_face = 0.5 * (T + _sh(T, 1, 0))
+            vs = jnp.where(v_valid, vs + c.dt * buoy * T_face, vs)
+            us, vs = vel_bc(us, vs)
+            b = poisson_source(us, vs, c, cell, remove_mean=True,
+                               n_cells=nx * ny)
+            guess = (2.0 * state.p - state.p_prev
+                     if extrapolate_warm_start and state.p_prev is not None
+                     else state.p)
+            p, iters, res = poisson(guess, b)
+            u2, v2 = pressure_correction(us, vs, p, c, u_valid,
+                                         v_valid, u_else=us, v_else=vs)
+            u2, v2 = vel_bc(u2, v2)
+            T2 = advect_diffuse_scalar(T, u2, v2, c, kappa=kappa,
+                                       cell_mask=cell)
+            T2 = temp_bc(T2)
+            p_prev = state.p if extrapolate_warm_start else None
+            return State(u2, v2, p, T2, p_prev), \
+                StepDiagnostics(iters, res)
 
-        coarse_shape = _round_up8_128((ny // 2 + 2, nx // 2 + 2))
-        _, _, Hq8, Wqa = quad_dims(grid.shape)
-        use_quad = coarse_shape == (Hq8, Wqa)
-        if layout == "quad" and not use_quad:
-            raise ValueError(
-                f"quad layout unavailable: coarse shape {coarse_shape} != "
-                f"quad plane shape {(Hq8, Wqa)}")
-    if layout == "quad" and not use_quad:
-        raise ValueError(
-            "layout='quad' requires the f32 kernel path (dtype=float32, "
-            "TPU platform or step_kernel_mode='interpret')")
-    if (mg.whole_solve or mg.whole_step) and not use_quad:
-        # whole_solve/whole_step must not be silently ignored off the
-        # quad path
-        raise ValueError("whole_solve/whole_step require the f32 quad "
-                         "multigrid kernel path")
-    if mg.coarse_dtype is not None and not use_quad:
-        # the provisional XLA solver above was built WITHOUT the knob —
-        # it must not be silently ignored off the kernel path
-        raise ValueError("coarse_dtype requires the f32 quad multigrid "
-                         "kernel path (dtype=float32, TPU platform or "
-                         "step_kernel_mode='interpret')")
-
-    if use_quad:
-        from cfd_tpu.kernels.rb_quad import (
-            make_quad_rb_corrector,
-            make_quad_rb_step_kernel,
-            uncorrect_rb_quad,
-        )
-
-        if not (mg_overrides and "post_sweeps" in mg_overrides):
-            mg = dataclasses.replace(mg, post_sweeps=1)
-        quad_l0 = (
-            make_quad_pre_smooth_restrict(
-                grid.shape, problem, mg.omega, mg.pre_sweeps,
-                coarse_shape, interpret=interp),
-            make_quad_post_prolong_smooth(
-                grid.shape, problem, mg.omega, mg.post_sweeps,
-                coarse_shape, interpret=interp),
-        )
-        # ONE Pallas call per pressure solve (kernels.whole_solve):
-        # pure-Neumann flavor with the per-cycle mean pin in-kernel — the
-        # measured round-3 DEFAULT where the hierarchy fits in VMEM (2771
-        # vs 2356 steps/s at 1536x512, BASELINE.md); falls back to the
-        # per-kernel composition when the build rejects or a fusion knob
-        # takes manual control (auto_whole_solve docstring).
-        from cfd_tpu.kernels.whole_solve import (
-            auto_whole_solve,
-            make_quad_whole_solve,
-        )
-
-        poisson, mg = auto_whole_solve(
-            mg, mg_overrides, interp,
-            build=lambda: make_quad_whole_solve(grid.shape, problem, mg,
-                                                pin_mean=True,
-                                                n_interior=nx * ny,
-                                                interpret=interp),
-            fallback=lambda: make_multigrid_poisson(
-                problem, mg, dtype=dtype, aligned_io=True, use_pallas=True,
-                pallas_interpret=interp, quad_level0=quad_l0,
-            ))
-        fused = make_quad_rb_step_kernel(
-            grid.shape, coeffs, kappa, params.t_bottom, params.t_top,
-            buoyancy=buoy, interpret=interp,
-            emit_guess=extrapolate_warm_start)
-        corr = make_quad_rb_corrector(grid.shape, coeffs, interpret=interp)
-        n_cells = nx * ny
-
-        def remove_mean(b, sum_b):
-            q = _jax.lax.broadcasted_iota(jnp.int32, b.shape, 0)
-            jj = 2 * _jax.lax.broadcasted_iota(jnp.int32, b.shape, 1) \
-                + (q >> 1)
-            ii = 2 * _jax.lax.broadcasted_iota(jnp.int32, b.shape, 2) \
-                + (q & 1)
-            cm = (jj >= 1) & (jj <= ny) & (ii >= 1) & (ii <= nx)
-            return jnp.where(cm, b - sum_b / n_cells, b)
-
-        if mg.whole_step:
-            if extrapolate_warm_start:
-                raise ValueError(
-                    "extrapolate_warm_start is not supported with "
-                    "whole_step (the fused time-step kernel warm-starts "
-                    "from plain p)")
-            # ONE Pallas call per TIME STEP (kernels.whole_step): the fused
-            # RB carry + mean removal + the pure-Neumann pinned solve.
-            from cfd_tpu.kernels.whole_step import make_quad_whole_step_rb
-
-            ws = make_quad_whole_step_rb(
-                grid.shape, problem, coeffs, mg, kappa, nx * ny,
-                params.t_bottom, params.t_top, buoyancy=buoy,
-                interpret=interp)
-
-            def custom_step(case: Case):
-                def step(state: State):
-                    us2, vs2, T2, p, iters, res = ws(state.u, state.v,
-                                                     state.p, state.T)
-                    return State(us2, vs2, p, T2), \
-                        StepDiagnostics(iters, res)
-
-                return step
-        elif extrapolate_warm_start:
-            def custom_step(case: Case):
-                def step(state: State):
-                    us2, vs2, T2, b, guess, sum_b = fused(
-                        state.u, state.v, state.p, state.T, state.p_prev)
-                    b = remove_mean(b, sum_b)
-                    p, iters, res = poisson(guess, b)
-                    return State(us2, vs2, p, T2, state.p), \
-                        StepDiagnostics(iters, res)
-
-                return step
-        else:
-            def custom_step(case: Case):
-                def step(state: State):
-                    us2, vs2, T2, b, sum_b = fused(state.u, state.v,
-                                                   state.p, state.T)
-                    b = remove_mean(b, sum_b)
-                    p, iters, res = poisson(state.p, b)
-                    return State(us2, vs2, p, T2), \
-                        StepDiagnostics(iters, res)
-
-                return step
-
-        def align_state(state):
-            us, vs = uncorrect_rb_quad(state.u, state.v, state.p,
-                                       grid.shape, coeffs)
-            t = lambda a: to_quad(a, grid.shape)
-            if extrapolate_warm_start:
-                p_prev = state.p if state.p_prev is None else state.p_prev
-                return State(t(us), t(vs), t(state.p), t(state.T), t(p_prev))
-            return State(t(us), t(vs), t(state.p), t(state.T), None)
-
-        def unalign_state(state):
-            u2, v2 = corr(state.u, state.v, state.p)
-            f = lambda a: from_quad(a, grid.shape)
-            return State(f(u2), f(v2), f(state.p), f(state.T),
-                         None if state.p_prev is None else f(state.p_prev))
-
-        # Lagged-controller adaptive on the SAME fused RB carry kernel:
-        # (dt_corr, dt_pred) traced SMEM pair (the corrector + T transport
-        # complete the step that built the carry with dt_corr; predictor/
-        # buoyancy/source advance with dt_pred), max|u2|/max|v2| fused into
-        # the kernel's scalar reductions — RB's first adaptive path
-        # (round-2 VERDICT item 5: "an RB adaptive variant becomes
-        # possible"; OpenFOAM adjustTimeStep semantics, reference
-        # README.md:112-114).
-        def adaptive_impl_carry():
-            fused_a = make_quad_rb_step_kernel(
-                grid.shape, coeffs, kappa, params.t_bottom, params.t_top,
-                buoyancy=buoy, interpret=interp, traced_dt=True,
-                emit_courant=True)
-            corr_a = make_quad_rb_corrector(grid.shape, coeffs,
-                                            interpret=interp, traced_dt=True)
-            idx_, idy_ = 1.0 / grid.dx, 1.0 / grid.dy
-
-            def step(state: State, dt_corr, dt_pred):
-                us2, vs2, T2, b, sum_b, mu, mv = fused_a(
-                    (dt_corr, dt_pred), state.u, state.v, state.p, state.T)
-                b = remove_mean(b, sum_b)
-                p, iters, res = poisson(state.p, b)
-                co_per_dt = mu * idx_ + mv * idy_
-                return (State(us2, vs2, p, T2),
-                        StepDiagnostics(iters, res), co_per_dt)
-
-            def to_aligned(st: State, dt):
-                us, vs = uncorrect_rb_quad(st.u, st.v, st.p, grid.shape,
-                                           coeffs, dt=dt)
-                t = lambda a: to_quad(a, grid.shape)
-                return State(t(us), t(vs), t(st.p), t(st.T), None)
-
-            def to_logical(st: State, dt_used):
-                u2, v2 = corr_a(dt_used, st.u, st.v, st.p)
-                f = lambda a: from_quad(a, grid.shape)
-                return State(f(u2), f(v2), f(st.p), f(st.T), None)
-
-            return step, to_aligned, to_logical
-
-        adaptive_carry_builder = adaptive_impl_carry
-    else:
-
-        def custom_step(case: Case):
-            from cfd_tpu.ops.stencil import predictor
-
-            def step(state: State):
-                u, v, T = state.u, state.v, state.T
-                us, vs = predictor(u, v, coeffs, u_valid, v_valid)
-                # buoyancy on v-faces: T averaged to the face between
-                # rows (j) and (j+1)
-                T_face = 0.5 * (T + _sh(T, 1, 0))
-                vs = jnp.where(v_valid, vs + dt * buoy * T_face, vs)
-                us, vs = vel_bc(us, vs)
-                b = poisson_source(us, vs, coeffs, cell, remove_mean=True,
-                                   n_cells=nx * ny)
-                guess = (2.0 * state.p - state.p_prev
-                         if extrapolate_warm_start and state.p_prev is not None
-                         else state.p)
-                p, iters, res = poisson(guess, b)
-                u2, v2 = pressure_correction(us, vs, p, coeffs, u_valid,
-                                             v_valid, u_else=us, v_else=vs)
-                u2, v2 = vel_bc(u2, v2)
-                T2 = advect_diffuse_scalar(T, u2, v2, coeffs, kappa=kappa,
-                                           cell_mask=cell)
-                T2 = temp_bc(T2)
-                p_prev = state.p if extrapolate_warm_start else None
-                return State(u2, v2, p, T2, p_prev), \
-                    StepDiagnostics(iters, res)
-
-            return step
+        return step
 
     def initial_state_fn() -> State:
         z = jnp.zeros(grid.shape, dtype=dtype)
@@ -453,8 +243,7 @@ def make_rayleigh_benard_case(
         u, v = vel_bc(z, z)
         # p_prev pre-filled (= p at t=0) so the scan-carry structure stays
         # static across steps when the extrapolated warm start is on
-        st = State(u, v, z, T, z if extrapolate_warm_start else None)
-        return align_state(st) if use_quad else st
+        return State(u, v, z, T, z if extrapolate_warm_start else None)
 
     def extra_stats(state: State):
         return nusselt_numbers(state, grid, params, kappa=kappa)
@@ -484,17 +273,9 @@ def make_rayleigh_benard_case(
         vtk_title="Rayleigh-Benard Convection Data",
         info=dict(banner_title="Rayleigh-Benard Convection Simulation",
                   length=aspect, height=1.0, rayleigh=rayleigh,
-                  prandtl=prandtl, cfl=cfl,
-                  # physics scalars for parallel.quad_sharded's RB flavor
-                  # (banner_lines ignores unknown keys)
-                  kappa=kappa, t_bottom=params.t_bottom,
-                  t_top=params.t_top),
+                  prandtl=prandtl, cfl=cfl, mg=mg),
         custom_step=custom_step,
         extrapolate_warm_start=extrapolate_warm_start,
-        carry_tentative=use_quad,
-        align_state=align_state,
-        unalign_state=unalign_state,
-        adaptive_impl_carry=adaptive_carry_builder,
         adaptive_diffusivity=max(nu, kappa),
         extra_stats=extra_stats,
         initial_state_fn=initial_state_fn,

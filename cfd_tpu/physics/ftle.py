@@ -8,7 +8,7 @@ time-resolved velocity, take the flow-map Jacobian by finite differences on
 the seed grid, and report ln(sqrt(lambda_max(C))) / |T| with C the
 Cauchy-Green tensor.
 
-TPU-native design: particles are dense (S_y, S_x) coordinate arrays, RK4
+Design: particles are dense (S_y, S_x) coordinate arrays, RK4
 advection with bilinear space + linear time interpolation is a `lax.scan`
 over frame intervals — one jitted program for the whole integration, no
 per-particle Python.

@@ -2,8 +2,8 @@
 
 The reference sweeps lexicographically (Gauss-Seidel ordering with stale
 east/north values, cavity-01.cpp:640-656, channel-01.cpp:650-664), which is
-inherently sequential. The TPU-native design uses red-black ordering: two
-masked whole-array half-sweeps per iteration, each a fused VPU pass. The
+inherently sequential. This solver uses red-black ordering: two
+masked whole-array half-sweeps per iteration, each a fused whole-array pass. The
 fixed point is the same linear system, so converged pressures match the
 reference to solver tolerance (iteration counts differ by design —
 SURVEY.md section 7 "hard parts").

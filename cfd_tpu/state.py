@@ -1,7 +1,7 @@
 """Flow state pytree.
 
 The reference holds nine mutable ``Field`` members (cavity-01.cpp:336-344);
-the TPU-native design carries only the physical state (u, v, p, and optional
+this design carries only the physical state (u, v, p, and optional
 temperature T) through pure step functions — tentative fields, sources and
 residuals are internal values of the jitted step, fused away by XLA.
 """

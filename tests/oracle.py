@@ -3,7 +3,7 @@
 These are independent re-implementations of the reference solvers' per-step
 math (written from the discretization spec in SURVEY.md section 2, with the
 same loop extents and update orders as cavity-01.cpp / channel-01.cpp /
-backwards_step-01.cpp) used as correctness oracles for the vectorized TPU
+backwards_step-01.cpp) used as correctness oracles for the vectorized
 ops. Everything is float64 and deliberately naive.
 """
 
@@ -289,3 +289,69 @@ def step_pressure_ghosts_loops(p, nx, ny, fluid):
                 if cnt > 0:
                     p[j, i] = s / cnt
     return p
+
+
+def rb_pairs_loops(p, b, wE, wW, wN, wS, idx2, idy2, omega, n_pairs, nx, ny):
+    """``n_pairs`` red+black Gauss-Seidel pairs of the weighted 5-point
+    operator (poisson.multigrid module docstring; full (ny+2, nx+2) weight
+    arrays). Red cells have (i + j) even; a cell with no coupling is left
+    alone. Same-colour cells do not read each other, so each half-sweep
+    reads the array as it stood before it."""
+    p = p.copy()
+    for _ in range(n_pairs):
+        for parity in (0, 1):
+            new = p.copy()
+            for j in range(1, ny + 1):
+                for i in range(1, nx + 1):
+                    if (i + j) % 2 != parity:
+                        continue
+                    d = idx2 * (wE[j, i] + wW[j, i]) + idy2 * (wN[j, i] + wS[j, i])
+                    if d <= 0:
+                        continue
+                    gs = (idx2 * (wE[j, i] * p[j, i + 1] + wW[j, i] * p[j, i - 1])
+                          + idy2 * (wN[j, i] * p[j + 1, i] + wS[j, i] * p[j - 1, i])
+                          - b[j, i]) / d
+                    new[j, i] = p[j, i] + omega * (gs - p[j, i])
+            p = new
+    return p
+
+
+def residual_loops(p, b, wE, wW, wN, wS, idx2, idy2, nx, ny):
+    """b - A p of the weighted operator on the interior, 0 elsewhere."""
+    r = np.zeros_like(p)
+    for j in range(1, ny + 1):
+        for i in range(1, nx + 1):
+            ap = (idx2 * (wE[j, i] * (p[j, i + 1] - p[j, i])
+                          + wW[j, i] * (p[j, i - 1] - p[j, i]))
+                  + idy2 * (wN[j, i] * (p[j + 1, i] - p[j, i])
+                            + wS[j, i] * (p[j - 1, i] - p[j, i])))
+            r[j, i] = b[j, i] - ap
+    return r
+
+
+def restrict_loops(r, nx_c, ny_c):
+    """Full weighting: each coarse interior cell is the mean of its four
+    fine children; padded coarse shape, ghosts 0."""
+    out = np.zeros((ny_c + 2, nx_c + 2))
+    for J in range(1, ny_c + 1):
+        for I in range(1, nx_c + 1):
+            j, i = 2 * J - 1, 2 * I - 1
+            out[J, I] = 0.25 * (r[j, i] + r[j, i + 1] + r[j + 1, i] + r[j + 1, i + 1])
+    return out
+
+
+def prolong_loops(e, nx_c, ny_c):
+    """Cell-centred bilinear (9-3-3-1)/16 interpolation of a coarse
+    correction, coarse ghosts replaced by edge extrapolation."""
+    ce = np.pad(e[1:ny_c + 1, 1:nx_c + 1], 1, mode="edge")
+    out = np.zeros((2 * ny_c + 2, 2 * nx_c + 2))
+    for J in range(1, ny_c + 1):
+        for I in range(1, nx_c + 1):
+            for cj in (0, 1):
+                for ci in (0, 1):
+                    sj = 1 if cj else -1
+                    si = 1 if ci else -1
+                    out[2 * J - 1 + cj, 2 * I - 1 + ci] = (
+                        9 * ce[J, I] + 3 * ce[J, I + si] + 3 * ce[J + sj, I]
+                        + ce[J + sj, I + si]) / 16.0
+    return out

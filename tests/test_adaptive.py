@@ -81,44 +81,33 @@ def test_adaptive_checkpoint_resume_bitwise(tmp_path):
                                   np.asarray(sd.u))
 
 
-def test_adaptive_quad_impl_matches_xla_path():
-    """The traced-dt quad adaptive path (round-3 item 5) follows the same
-    dt schedule as the XLA adaptive path and lands on the same trajectory
-    to f32 roundoff (interpret-mode kernels on CPU)."""
+def test_adaptive_f32_follows_f64_schedule():
+    """The float32 adaptive run follows the float64 run's dt schedule to
+    f32 roundoff and lands on the same trajectory (the Courant estimate
+    feeds back into dt, so a relative band rather than equality)."""
     import jax.numpy as jnp
 
     kw = dict(n_interior=32, reynolds_number=100.0, final_time=10.0,
               poisson="multigrid", tolerance_factor=1e-5, print_interval=5,
-              dt=1e-4, dtype=jnp.float32)
-    cq = make_cavity_case(step_kernel_mode="interpret", layout="quad", **kw)
-    assert cq.adaptive_impl is not None
-    cx = make_cavity_case(step_kernel_mode="off", **kw)
-    assert cx.adaptive_impl is None
-
-    sq = Simulation(cq, log=quiet)
-    sx = Simulation(cx, log=quiet)
-    st_q, rows_q = run_adaptive(sq, max_courant=0.4, n_steps=30, log=quiet)
-    st_x, rows_x = run_adaptive(sx, max_courant=0.4, n_steps=30, log=quiet)
-    assert st_q.u.shape == cx.grid.shape  # returned in the logical layout
-    # dt schedules agree to f32 roundoff (the Courant estimate feeds back
-    # into dt, so a relative band rather than equality)
-    for rq, rx in zip(rows_q, rows_x):
-        assert abs(rq["dt"] - rx["dt"]) <= 1e-4 * rx["dt"], (rq, rx)
-    # INTERIOR comparison: the ghost-entry conventions differ by design
-    # (the XLA corrector leaves the pre-step BC ghosts via u_else; the quad
-    # slim corrector rebuilds ghosts from the corrected interior — both are
-    # overwritten by the next step's BC, so the physics agrees)
+              dt=1e-4)
+    c32 = make_cavity_case(dtype=jnp.float32, **kw)
+    c64 = make_cavity_case(dtype=jnp.float64, **kw)
+    st32, rows32 = run_adaptive(Simulation(c32, log=quiet), max_courant=0.4,
+                                n_steps=30, log=quiet)
+    st64, rows64 = run_adaptive(Simulation(c64, log=quiet), max_courant=0.4,
+                                n_steps=30, log=quiet)
+    for r32, r64 in zip(rows32, rows64):
+        assert abs(r32["dt"] - r64["dt"]) <= 1e-4 * r64["dt"], (r32, r64)
     inner = np.s_[1:-1, 1:-1]
-    np.testing.assert_allclose(np.asarray(st_q.u)[inner],
-                               np.asarray(st_x.u)[inner], atol=2e-5)
-    np.testing.assert_allclose(np.asarray(st_q.p)[inner],
-                               np.asarray(st_x.p)[inner], atol=1e-4)
+    np.testing.assert_allclose(np.asarray(st32.u)[inner],
+                               np.asarray(st64.u)[inner], atol=2e-5)
+    np.testing.assert_allclose(np.asarray(st32.p)[inner],
+                               np.asarray(st64.p)[inner], atol=1e-4)
 
 
-def test_adaptive_quad_checkpoint_resume(tmp_path):
-    """Adaptive checkpoint/resume through the quad impl's logical boundary
-    stays on the trajectory (resume contract: one f32 rounding at the
-    guess involution, not bitwise)."""
+def test_adaptive_chunked_checkpoint_resume(tmp_path):
+    """The device-resident (chunked) controller checkpoints (State, step,
+    dt, t) and resumes onto the uninterrupted trajectory."""
     import jax.numpy as jnp
 
     from cfd_tpu.io.checkpoint import CheckpointManager
@@ -126,16 +115,18 @@ def test_adaptive_quad_checkpoint_resume(tmp_path):
     kw = dict(n_interior=32, reynolds_number=100.0, final_time=10.0,
               poisson="multigrid", tolerance_factor=1e-5, print_interval=5,
               dt=1e-4, dtype=jnp.float32)
-    case = make_cavity_case(step_kernel_mode="interpret", layout="quad", **kw)
-    sim = Simulation(case, log=quiet)
-    st_full, _ = run_adaptive(sim, max_courant=0.4, n_steps=10, log=quiet)
+    case = make_cavity_case(**kw)
+    st_full, _ = run_adaptive(Simulation(case, log=quiet), max_courant=0.4,
+                              n_steps=10, steps_per_call=5, log=quiet)
 
     sim2 = Simulation(case, log=quiet)
     sim2.checkpointer = CheckpointManager(tmp_path, interval=5)
-    run_adaptive(sim2, max_courant=0.4, n_steps=5, log=quiet)
+    run_adaptive(sim2, max_courant=0.4, n_steps=5, steps_per_call=5,
+                 log=quiet)
     sim3 = Simulation(case, log=quiet)
     sim3.checkpointer = CheckpointManager(tmp_path, interval=5)
-    st_res, _ = run_adaptive(sim3, max_courant=0.4, n_steps=10, log=quiet)
+    st_res, _ = run_adaptive(sim3, max_courant=0.4, n_steps=10,
+                             steps_per_call=5, log=quiet)
     np.testing.assert_allclose(np.asarray(st_res.u), np.asarray(st_full.u),
                                atol=5e-5)
     np.testing.assert_allclose(np.asarray(st_res.p), np.asarray(st_full.p),
@@ -150,7 +141,7 @@ def test_adaptive_chunked_controller_matches_host_loop():
     kw = dict(n_interior=32, reynolds_number=100.0, final_time=10.0,
               poisson="multigrid", tolerance_factor=1e-5, print_interval=5,
               dt=1e-4, dtype=jnp.float32)
-    case = make_cavity_case(step_kernel_mode="interpret", layout="quad", **kw)
+    case = make_cavity_case(**kw)
     sim = Simulation(case, log=quiet)
     st_host, rows_host = run_adaptive(sim, max_courant=0.4, n_steps=20,
                                       log=quiet)
@@ -164,8 +155,8 @@ def test_adaptive_chunked_controller_matches_host_loop():
 
 
 def test_adaptive_lagged_controller_matches_exact_band():
-    """The lagged controller (tentative-carry fused kernel, one-step-stale
-    Courant feedback = OpenFOAM adjustTimeStep semantics) tracks the exact
+    """The lagged controller (one-step-stale Courant feedback = OpenFOAM
+    adjustTimeStep semantics) tracks the exact
     controller's dt schedule within the growth band and lands on a nearby
     trajectory; Co stays at/below target after the transient."""
     import jax.numpy as jnp
@@ -173,8 +164,7 @@ def test_adaptive_lagged_controller_matches_exact_band():
     kw = dict(n_interior=32, reynolds_number=100.0, final_time=10.0,
               poisson="multigrid", tolerance_factor=1e-5, print_interval=5,
               dt=1e-4, dtype=jnp.float32)
-    case = make_cavity_case(step_kernel_mode="interpret", layout="quad", **kw)
-    assert case.adaptive_impl_carry is not None
+    case = make_cavity_case(**kw)
     sim = Simulation(case, log=quiet)
     st_ex, rows_ex = run_adaptive(sim, max_courant=0.4, n_steps=30, log=quiet)
     st_lag, rows_lag = run_adaptive(sim, max_courant=0.4, n_steps=30,
@@ -198,9 +188,7 @@ def test_adaptive_lagged_controller_matches_exact_band():
 
 def test_adaptive_lagged_checkpoint_resume(tmp_path):
     """Lagged-controller checkpoint/resume: (State, step, dt, t, dt_used)
-    persisted; resumed continuation stays on the trajectory (one f32
-    rounding at the uncorrect/correct boundary, same contract as the
-    fixed-dt carry)."""
+    persisted; the resumed continuation stays on the trajectory."""
     import jax.numpy as jnp
 
     from cfd_tpu.io.checkpoint import CheckpointManager
@@ -208,7 +196,7 @@ def test_adaptive_lagged_checkpoint_resume(tmp_path):
     kw = dict(n_interior=32, reynolds_number=100.0, final_time=10.0,
               poisson="multigrid", tolerance_factor=1e-5, print_interval=5,
               dt=1e-4, dtype=jnp.float32)
-    case = make_cavity_case(step_kernel_mode="interpret", layout="quad", **kw)
+    case = make_cavity_case(**kw)
     sim = Simulation(case, log=quiet)
     st_full, rows_full = run_adaptive(sim, max_courant=0.4, n_steps=10,
                                       controller="lagged", steps_per_call=5,
@@ -233,37 +221,36 @@ RB_KW = dict(nx=48, ny=16, rayleigh=1e5, dtype=None,  # dtype set below
              tolerance_factor=1e-5, abs_tol=1e-7, print_interval=3)
 
 
-def _rb_quad_case():
+def _rb_case():
     import jax.numpy as jnp
 
     from cfd_tpu.physics.boussinesq import make_rayleigh_benard_case
 
-    kw = dict(RB_KW, dtype=jnp.float32)
-    return make_rayleigh_benard_case(step_kernel_mode="interpret",
-                                     layout="quad", **kw)
+    return make_rayleigh_benard_case(**dict(RB_KW, dtype=jnp.float32))
 
 
-def test_adaptive_rb_exact_controller_raises():
-    """RB has a custom step: the exact controller refuses with a message
-    pointing at the lagged one."""
-    import pytest
-
-    case = _rb_quad_case()
+def test_adaptive_rb_exact_controller_runs():
+    """RB's custom step takes a traced dt too: the exact controller runs it,
+    grows dt from a small start and keeps T in the wall band."""
+    case = _rb_case()
     sim = Simulation(case, log=quiet)
-    with pytest.raises(ValueError, match="lagged"):
-        run_adaptive(sim, max_courant=0.4, n_steps=3, log=quiet)
+    st, rows = run_adaptive(sim, max_courant=0.4, n_steps=9,
+                            dt0=case.dt * 0.25, log=quiet)
+    assert rows[-1]["dt"] > rows[0]["dt"]
+    Ti = np.asarray(st.T)[1:-1, 1:-1]
+    assert np.isfinite(Ti).all() and Ti.min() >= -0.25 and Ti.max() <= 1.25
 
 
 def test_adaptive_rb_lagged_fixed_dt_equivalence():
     """With growth=1 and a huge Courant target the lagged RB controller
-    never changes dt — its trajectory must match the fixed-dt fused-carry
-    path to f32 roundoff (same kernel, dt merely traced)."""
-    case = _rb_quad_case()
+    never changes dt — its trajectory must match the fixed-dt path to f32
+    roundoff (same step, dt merely traced)."""
+    case = _rb_case()
     sim = Simulation(case, log=quiet)
     st_fixed = sim.initial_state()
     for _ in range(6):
         st_fixed, _ = sim._step(st_fixed)
-    lf = sim._logical(st_fixed)
+    lf = st_fixed
 
     st_ad, _ = run_adaptive(sim, max_courant=1e6, n_steps=6, growth=1.0,
                             controller="lagged", steps_per_call=3, log=quiet)
@@ -281,7 +268,7 @@ def test_adaptive_rb_lagged_grows_to_diffusive_ceiling():
     by the growth factor per step until the diffusive stability ceiling
     (0.25 h^2 / max(nu, kappa) — kappa binds at Pr < 1) caps it; the run
     stays finite and T stays within the wall band."""
-    case = _rb_quad_case()
+    case = _rb_case()
     assert case.adaptive_diffusivity is not None
     h = min(case.coeffs.dx, case.coeffs.dy)
     ceiling = 0.25 * h * h / case.adaptive_diffusivity
@@ -300,22 +287,20 @@ def test_adaptive_rb_lagged_grows_to_diffusive_ceiling():
 
 def test_adaptive_channel_lagged_fixed_dt_equivalence():
     """Channel lagged controller with growth=1 and a huge Courant target
-    == the fixed-dt tentative-carry channel path to f32 roundoff (same
-    fused kernel, dt merely traced; guess = 2p - p_prev preserved)."""
+    == the fixed-dt channel path to f32 roundoff (same step, dt merely
+    traced; guess = 2p - p_prev preserved)."""
     import jax.numpy as jnp
 
     from cfd_tpu.cases import make_channel_case
 
     case = make_channel_case(nx=96, ny=32, dtype=jnp.float32,
                              poisson="multigrid", tolerance_factor=1e-6,
-                             step_kernel_mode="interpret", layout="quad",
                              print_interval=3)
-    assert case.adaptive_impl_carry is not None
     sim = Simulation(case, log=quiet)
     st_fixed = sim.initial_state()
     for _ in range(6):
         st_fixed, _ = sim._step(st_fixed)
-    lf = sim._logical(st_fixed)
+    lf = st_fixed
 
     st_ad, _ = run_adaptive(sim, max_courant=1e6, n_steps=6, growth=1.0,
                             controller="lagged", steps_per_call=3, log=quiet)
@@ -338,7 +323,6 @@ def test_adaptive_channel_lagged_courant_respected():
 
     case = make_channel_case(nx=96, ny=32, dtype=jnp.float32,
                              poisson="multigrid", tolerance_factor=1e-6,
-                             step_kernel_mode="interpret", layout="quad",
                              print_interval=3)
     sim = Simulation(case, log=quiet)
     st, rows = run_adaptive(sim, max_courant=0.4, n_steps=18,
@@ -352,9 +336,8 @@ def test_adaptive_channel_lagged_courant_respected():
 
 def test_adaptive_step_lagged_fixed_dt_equivalence():
     """Backwards-step lagged controller with growth=1 and a huge Courant
-    target == the fixed-dt tentative-carry masked path to f32 roundoff
-    (same fused masked kernel + masked defect-correction MG, plain-p warm
-    start preserved)."""
+    target == the fixed-dt masked path to f32 roundoff (same masked step and
+    defect-correction MG, plain-p warm start preserved)."""
     import jax.numpy as jnp
 
     from cfd_tpu.cases.backwards_step import make_backwards_step_case
@@ -362,14 +345,12 @@ def test_adaptive_step_lagged_fixed_dt_equivalence():
     case = make_backwards_step_case(nx=64, ny=16, dtype=jnp.float32,
                                     poisson="multigrid",
                                     tolerance_factor=1e-5,
-                                    smoother_mode="interpret", layout="quad",
                                     print_interval=3)
-    assert case.adaptive_impl_carry is not None
     sim = Simulation(case, log=quiet)
     st_fixed = sim.initial_state()
     for _ in range(6):
         st_fixed, _ = sim._step(st_fixed)
-    lf = sim._logical(st_fixed)
+    lf = st_fixed
 
     st_ad, _ = run_adaptive(sim, max_courant=1e6, n_steps=6, growth=1.0,
                             controller="lagged", steps_per_call=3, log=quiet)
@@ -385,7 +366,7 @@ def test_adaptive_step_lagged_fixed_dt_equivalence():
 def test_adaptive_step_lagged_courant_respected():
     """Backwards-step lagged adaptive from a small dt0: dt grows toward
     the Courant/diffusive bound and the solid region stays untouched
-    (masked kernels; u inside the solid block is exactly zero)."""
+    (u inside the solid block is exactly zero)."""
     import jax.numpy as jnp
 
     from cfd_tpu.cases.backwards_step import make_backwards_step_case
@@ -394,7 +375,6 @@ def test_adaptive_step_lagged_courant_respected():
     case = make_backwards_step_case(nx=64, ny=16, dtype=jnp.float32,
                                     poisson="multigrid",
                                     tolerance_factor=1e-5,
-                                    smoother_mode="interpret", layout="quad",
                                     print_interval=3)
     sim = Simulation(case, log=quiet)
     st, rows = run_adaptive(sim, max_courant=0.4, n_steps=12,
@@ -412,10 +392,10 @@ def test_adaptive_step_lagged_courant_respected():
 
 def test_adaptive_rb_lagged_checkpoint_resume(tmp_path):
     """Lagged RB checkpoint/resume stays on the trajectory (T included in
-    the persisted state; one f32 rounding at the uncorrect boundary)."""
+    the persisted state)."""
     from cfd_tpu.io.checkpoint import CheckpointManager
 
-    case = _rb_quad_case()
+    case = _rb_case()
     sim = Simulation(case, log=quiet)
     st_full, _ = run_adaptive(sim, max_courant=0.4, n_steps=12,
                               controller="lagged", steps_per_call=3,

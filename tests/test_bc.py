@@ -1,11 +1,13 @@
 import numpy as np
 import jax.numpy as jnp
+import pytest
 
 import oracle
 from cfd_tpu.bc import (
     channel_bc,
     channel_pressure_ghosts,
     lid_cavity_bc,
+    put,
     step_bc,
     step_pressure_ghosts,
 )
@@ -62,3 +64,24 @@ def test_step_pressure_ghosts_match_loops():
     gp = step_pressure_ghosts(g)(jnp.asarray(p))
     op = oracle.step_pressure_ghosts_loops(p.copy(), g.nx, g.ny, g.fluid)
     np.testing.assert_allclose(np.asarray(gp), op, atol=1e-15)
+
+
+@pytest.mark.parametrize("rows,cols", [
+    (slice(0, 1), slice(0, 8)),      # bottom ghost row
+    (slice(5, 6), slice(0, 9)),      # top ghost row, full width
+    (slice(1, 5), slice(0, 1)),      # left ghost column, interior rows
+    (slice(0, 6), slice(8, 9)),      # right ghost column
+    (slice(2, 4), slice(3, 7)),      # interior block
+    (slice(0, 6), slice(0, 9)),      # everything
+])
+@pytest.mark.parametrize("kind", ["scalar", "shifted"])
+def test_put_matches_indexed_set(rows, cols, kind):
+    """bc.put, the select the BCs are built of, writes exactly what
+    ``a.at[rows, cols].set(value[rows, cols])`` writes."""
+    a = RNG.normal(size=(6, 9))
+    value = 0.75 if kind == "scalar" else np.roll(a, 1, axis=0)
+    got = put(jnp.asarray(a), rows, cols,
+              value if kind == "scalar" else jnp.asarray(value))
+    want = a.copy()
+    want[rows, cols] = value if kind == "scalar" else value[rows, cols]
+    np.testing.assert_array_equal(np.asarray(got), want)

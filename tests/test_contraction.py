@@ -1,10 +1,9 @@
-"""Solver-efficiency regression guards (VERDICT round-4 item 7).
+"""Solver-efficiency regression guards.
 
-The mg_tail/whole_solve equivalence tests intentionally allow cycle-count
-bands of +-max(2, 25%) — floor-terminated f32 solves of differently-compiled
-programs legitimately exit cycles apart — which leaves convergence-RATE
-drift inside the band invisible to CI.  These tests close that hole with two
-deterministic signals, both immune to floor-termination noise:
+Floor-terminated f32 solves of differently-compiled programs legitimately
+exit cycles apart, so cycle counts alone leave convergence-RATE drift
+invisible to CI. These tests pin two deterministic signals, both immune to
+floor-termination noise:
 
 1. Per-flavor asymptotic V-cycle contraction factors on a fixed seeded
    source in f64 (no roundoff floor in range), cycle-by-cycle via
@@ -17,7 +16,7 @@ deterministic signals, both immune to floor-termination noise:
    must terminate within a small factor of the TRUE floor residual that a
    stall-free reference run reaches.  The round-3 bug (stall_ratio=0.7
    mistaking a mid-solve plateau for the floor, exiting at 7.5e4x
-   tolerance — BASELINE.md round-4) fails this by four orders of
+   tolerance) fails this by four orders of
    magnitude.
 
 Measured factors (this machine, f64, seeds below; geometric mean over
@@ -32,8 +31,7 @@ cycles 2..N):
                                         pre-fill mask-blind transfer
                                         oscillated 0.39-0.65/cycle around
                                         a 0.475 geomean — the
-                                        barely-contracting masked mode,
-                                        BASELINE.md round-4)
+                                        barely-contracting masked mode)
 
 Reference anchor for the step bound: the capped SOR loop it must dominate,
 /root/reference/backwards_step-01.cpp:872-939.

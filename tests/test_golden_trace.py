@@ -2,8 +2,8 @@
 
 The per-interval stats row is the reference's de-facto regression signal
 (SURVEY.md section 4.2). Field snapshots can agree while the *trajectory*
-diverges later (e.g. the zero-cycle f64-on-TPU Poisson bug showed up only in
-the running trace), so these tests march each case and compare max(div) and
+diverges later (e.g. a zero-cycle Poisson exit shows up only in the running
+trace), so these tests march each case and compare max(div) and
 avg_KE against the parsed golden rows at the reference's print intervals,
 at the reference's printed precision.
 """

@@ -123,7 +123,7 @@ def test_cli_mg_overrides():
 
     args = build_parser().parse_args(
         ["cavity", "--Nx", "128", "--Ny", "128", "--poisson", "multigrid",
-         "--mg", "pre_sweeps=3,tol_factor=1e-5,tail_from=none"])
+         "--mg", "pre_sweeps=3,tol_factor=1e-5,corr_opt=false"])
     case = make_case_from_args(args)  # builds without error
     assert case.poisson_solve is not None
 
@@ -132,11 +132,11 @@ def test_cli_mg_overrides():
     with pytest.raises(SystemExit, match="bogus"):
         make_case_from_args(args)
 
-    # whole_solve=true off the quad path hits the factory's loud guard
+    # values must be numbers or booleans
     args = build_parser().parse_args(
         ["cavity", "--Nx", "128", "--Ny", "128", "--poisson", "multigrid",
-         "--mg", "whole_solve=true"])
-    with pytest.raises(ValueError, match="whole_solve"):
+         "--mg", "omega=fast"])
+    with pytest.raises(SystemExit, match="omega"):
         make_case_from_args(args)
 
 

@@ -213,7 +213,7 @@ def test_stall_exit_survives_midsolve_plateau_channel_1536x512():
     nx, ny = 1536, 512
     case = make_channel_case(nx=nx, ny=ny, poisson="multigrid",
                              tolerance_factor=1e-6, abs_tol=0.0,
-                             dtype=jnp.float32, step_kernel_mode="off")
+                             dtype=jnp.float32)
     g, c = case.grid, case.coeffs
     sim = Simulation(case, log=quiet)
     st = sim.initial_state()
@@ -222,7 +222,7 @@ def test_stall_exit_survives_midsolve_plateau_channel_1536x512():
     us, vs = case.velocity_bc(us, vs)
     b = poisson_source(us, vs, c, jnp.asarray(g.cell_mask),
                        remove_mean=True, n_cells=nx * ny)
-    # V(2,1) — the f32 quad perf configuration where the plateau appears
+    # V(2,1) — the configuration where the plateau appears
     cfg = MGConfig(tol_factor=1e-6, abs_tol=0.0, post_sweeps=1)
     solve = make_multigrid_poisson(channel_problem(nx, ny, g.dx, g.dy),
                                    cfg, dtype=jnp.float32)

@@ -1,4 +1,4 @@
-"""Factory parameter validation (VERDICT round-2 item 9): the reference's
+"""Factory parameter validation: the reference's
 constructor-time checks (cavity-01.cpp:417-425, backwards_step-01.cpp:455-461)
 made systematic — bad scalars fail fast with the offending name."""
 
@@ -67,16 +67,3 @@ def test_defaults_emit_no_warnings(recwarn):
     make_cavity_case(n_interior=15)
     make_channel_case(nx=16, ny=8)
     assert not [w for w in recwarn if issubclass(w.category, UserWarning)]
-
-
-def test_explicit_layout_rejected_off_kernel_path():
-    """ADVICE round-2: layout='quad' must not be silently ignored when the
-    f32 kernel branch is inactive (f64 here)."""
-    import jax.numpy as jnp
-
-    with pytest.raises(ValueError, match="layout"):
-        make_cavity_case(n_interior=16, dtype=jnp.float64, layout="quad",
-                         poisson="multigrid")
-    with pytest.raises(ValueError, match="layout"):
-        make_channel_case(nx=128, ny=128, dtype=jnp.float64, layout="quad",
-                          poisson="multigrid")

@@ -1,4 +1,5 @@
 import numpy as np
+import pytest
 import jax.numpy as jnp
 
 import oracle
@@ -223,3 +224,42 @@ def test_steps_per_call_must_divide_checkpoint_interval(tmp_path):
     import pytest
     with pytest.raises(ValueError, match="checkpoint"):
         sim.run(n_steps=6, steps_per_call=2)
+
+
+@pytest.mark.parametrize("flavor", ["cavity", "channel", "step", "rb"])
+def test_dt_step_with_traced_case_dt_matches_fixed_step(flavor):
+    """make_dt_step(case)(state, dt), dt traced into the jitted step (the
+    adaptive path), equals the fixed-dt step when dt is the case's own."""
+    import jax
+
+    from cfd_tpu.physics.boussinesq import make_rayleigh_benard_case
+    from cfd_tpu.solver import make_dt_step, make_step
+
+    case = {
+        "cavity": lambda: make_cavity_case(n_interior=32, poisson="multigrid",
+                                           final_time=1.0),
+        "channel": lambda: make_channel_case(nx=48, ny=16,
+                                             poisson="multigrid",
+                                             final_time=1.0),
+        "step": lambda: make_backwards_step_case(nx=64, ny=16,
+                                                 poisson="multigrid",
+                                                 final_time=1.0),
+        "rb": lambda: make_rayleigh_benard_case(nx=48, ny=16, rayleigh=1e5,
+                                                dtype=jnp.float64),
+    }[flavor]()
+    state = Simulation(case, log=quiet).initial_state()
+    fixed = jax.jit(make_step(case))
+    traced = jax.jit(make_dt_step(case))
+    want, got = state, state
+    for _ in range(3):
+        want, dw = fixed(want)
+        got, dg = traced(got, jnp.asarray(case.dt, case.dtype))
+        assert int(dg.poisson_iters) == int(dw.poisson_iters)
+    for name in ("u", "v", "p", "T"):
+        a = getattr(want, name)
+        if a is not None:
+            np.testing.assert_allclose(np.asarray(getattr(got, name)),
+                                       np.asarray(a), rtol=0,
+                                       atol=1e-12 * max(1.0, float(
+                                           np.abs(np.asarray(a)).max())),
+                                       err_msg=name)

@@ -3,7 +3,7 @@
 Two tiers: (a) byte-identical t=0 snapshots and .pvd collections — format
 parity; (b) numeric field agreement after real simulation steps against the
 reference binary's own VTK output — end-to-end solver+writer regression at
-the BASELINE 1e-5 accuracy target.
+a 1e-5 accuracy target.
 """
 
 import re
@@ -88,7 +88,7 @@ def test_pvd_collection_is_byte_identical_to_reference():
     "name,factory,base,steps,atol",
     [
         # cavity PPE tol is 1e-9-relative -> iterate-level solver differences
-        # are negligible and the 1e-5 BASELINE accuracy target applies even
+        # are negligible and the 1e-5 accuracy target applies even
         # mid-transient.
         ("cavity", make_cavity_case, "cavity_flow", 100, 2e-5),
         # channel/step PPE tol is only 1e-7-relative (channel-01.cpp:296-297):
@@ -122,7 +122,7 @@ def test_simulated_snapshot_matches_reference_fields(tmp_path, name, factory, ba
 
 @pytest.mark.slow
 def test_channel_steady_state_matches_reference_to_1e5(tmp_path):
-    """Steady-state field parity at the BASELINE 1e-5 target: by step 1500
+    """Steady-state field parity at the 1e-5 target: by step 1500
     the channel is stationary (golden avg_KE constant from step 800), so
     Poisson-iterate differences have washed out."""
     case = make_channel_case()

@@ -1,4 +1,4 @@
-"""MG knob sweep at 2048^2 on the real TPU chip.
+"""MG knob sweep at 2048^2 on the GPU.
 
 For each (pre_sweeps, post_sweeps, min_coarse) variant: compile the fused
 cavity step, run warmup + timed chunks, report steps/s, mean V-cycles/step,
@@ -13,7 +13,6 @@ import sys
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), ".."))
 
-import sys
 import time
 
 import jax
@@ -57,15 +56,20 @@ def run_variant(n, overrides, steps=200, chunk=100):
 
 def main():
     n = int(sys.argv[1]) if len(sys.argv) > 1 else 2048
+    from cfd_tpu.runtime import device_info, enable_compile_cache
+
+    enable_compile_cache()
+    print(device_info(), flush=True)
     variants = [
-        ("baseline V(2,2) mc4", {}),
-        ("V(1,2) mc4", {"pre_sweeps": 1}),
-        ("V(2,1) mc4", {"post_sweeps": 1}),
-        ("V(1,1) mc4", {"pre_sweeps": 1, "post_sweeps": 1}),
-        ("V(2,2) mc16", {"min_coarse": 16}),
-        ("V(2,2) mc32", {"min_coarse": 32}),
-        ("V(1,2) mc32", {"pre_sweeps": 1, "min_coarse": 32}),
-        ("V(1,1) mc32", {"pre_sweeps": 1, "post_sweeps": 1, "min_coarse": 32}),
+        # overrides apply to the cavity factory's default V(2,1), min_coarse 4
+        ("V(2,1) mc4 (default)", {}),
+        ("V(2,2) mc4", {"post_sweeps": 2}),
+        ("V(1,2) mc4", {"pre_sweeps": 1, "post_sweeps": 2}),
+        ("V(1,1) mc4", {"pre_sweeps": 1}),
+        ("V(2,1) mc16", {"min_coarse": 16}),
+        ("V(2,1) mc32", {"min_coarse": 32}),
+        ("V(1,2) mc32", {"pre_sweeps": 1, "post_sweeps": 2, "min_coarse": 32}),
+        ("V(1,1) mc32", {"pre_sweeps": 1, "min_coarse": 32}),
     ]
     for name, ov in variants:
         try:
